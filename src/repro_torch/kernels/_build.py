@@ -15,10 +15,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
-#: no --use_fast_math: the scan's infinities need IEEE behaviour
+#: no --use_fast_math: the scan's infinities, the softmax's exp and the
+#: norms' rsqrt / division need IEEE behaviour
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -54,21 +56,35 @@ def build_command(name: str, out: Path) -> list[str]:
     return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
 
 
+def build(names: Sequence[str]) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is missing: one
+    ``nvcc`` per source, all started together. Raises if any fails."""
+    running = []
+    for name in dict.fromkeys(names):
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        running.append((name, out, tmp, subprocess.Popen(
+            build_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{err}")
+        else:
+            os.replace(tmp, out)      # atomic: a concurrent process sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, and load it."""
     lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    if not out.exists():
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        proc = subprocess.run(build_command(name, tmp), capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)          # atomic: a concurrent process sees all or nothing
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -79,3 +79,99 @@ def test_auto_backend_is_the_kernel_and_agrees_with_the_host(card):
         assert res.total_wait == pytest.approx(host.total_wait, rel=1e-9)
         assert res.workload_finish == pytest.approx(host.workload_finish,
                                                     rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K2) and RMSNorm (K4) against their plain versions
+# ---------------------------------------------------------------------------
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(seed, b, sq, h, kvh, d, skv, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,q_offset", [
+    (2, 256, 256, 16, 8, 128, True, 0),     # qwen3's heads
+    (1, 1000, 1000, 4, 2, 128, True, 0),    # ragged
+    (1, 64, 256, 4, 4, 64, True, 192),      # continuation
+    (2, 130, 130, 8, 2, 64, False, 0),      # full, ragged
+    (2, 128, 128, 4, 1, 32, True, 0),       # MQA
+    (1, 200, 200, 2, 2, 112, True, 0),      # zamba2's head dim
+    (3, 1, 77, 4, 2, 128, True, 76),        # one query at the end
+    (2, 300, 300, 8, 2, 32, True, 0),       # ragged, head dim 32
+], ids=str)
+def test_flash_attention_matches_plain_version(card, dtype, b, sq, skv, h, kvh, d,
+                                               causal, q_offset):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(sq + d, b, sq, h, kvh, d, skv, dtype, card)
+    before = fa.launch_count
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.launch_count == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("rows,d", [(8192, 1024), (4096, 128), (7, 3584), (5, 6144),
+                                    (3, 100), (1, 12288)], ids=str)
+def test_rmsnorm_matches_plain_version(card, dtype, rows, d):
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).to(card, dtype)
+    scale = torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(card, dtype)
+    before = rn.launch_count
+    got = rn.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    assert rn.launch_count == before + 1
+    want = rn.rmsnorm_plain(x, scale)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_takes_unaligned_operands(card):
+    """A contiguous view that starts one element into its storage is not
+    16-byte aligned: float32 takes it, bfloat16 (the tensor-core kernel's
+    16-byte loads) raises."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    q, k, v = _qkv(3, 2, 100, 4, 2, 64, 100, torch.float32, card)
+    qs, ks, vs = (shifted(t) for t in (q, k, v))
+    assert qs.data_ptr() % 16 != 0 and qs.is_contiguous()
+    got = fa.flash_attention(qs, ks, vs)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    qs, ks, vs = (shifted(t.bfloat16()) for t in (q, k, v))
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        fa.flash_attention(qs, ks, vs)
+
+
+def test_kernel_wrappers_raise_on_cuda_tensors_they_do_not_take(card):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    q, k, v = _qkv(0, 1, 8, 4, 2, 256, 8, torch.float32, card)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v)                     # head dim 256 > 128
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    q, k, v = _qkv(0, 1, 8, 4, 2, 40, 8, torch.bfloat16, card)
+    with pytest.raises(RuntimeError, match="head dims 32, 64, 112, 128"):
+        fa.flash_attention(q, k, v)                     # no bf16 instance for 40
+    x = torch.zeros((2, 20000), device=card)
+    with pytest.raises(ValueError):
+        rn.rmsnorm(x, torch.ones(20000, device=card))    # row longer than the kernel holds
+    with pytest.raises(ValueError):
+        rn.rmsnorm(x[:, ::2], torch.ones(10000, device=card))

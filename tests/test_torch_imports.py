@@ -31,9 +31,14 @@ def test_the_walk_covers_the_slice():
     for want in ("__init__.py", "obs/recorder.py", "core/graphs.py",
                  "core/simulator.py", "core/sim_scan.py", "core/convert.py",
                  "search/optimizer.py", "kernels/lindley_scan.py",
-                 "kernels/_build.py"):
+                 "kernels/_build.py", "kernels/flash_attention.py",
+                 "kernels/rmsnorm.py", "kernels/ref.py", "kernels/ops.py",
+                 "configs/base.py", "configs/qwen3_0_6b.py",
+                 "models/layers.py", "models/model.py", "models/convert.py",
+                 "serve/engine.py", "launch/serve.py"):
         assert want in names
-    assert (PORT / "kernels" / "csrc" / "lindley_scan.cu").is_file()
+    for cu in ("lindley_scan.cu", "flash_attention.cu", "rmsnorm.cu"):
+        assert (PORT / "kernels" / "csrc" / cu).is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -57,6 +62,9 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.obs, repro_torch.core\n"
         "import repro_torch.core.convert, repro_torch.search\n"
         "import repro_torch.kernels.lindley_scan\n"
+        "import repro_torch.kernels.ops, repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.models.convert, repro_torch.serve\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"
