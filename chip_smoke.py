@@ -5,7 +5,7 @@
 
 Builds every hand-written kernel from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card, then drives the port's two paths at full size:
+version on the card, then drives the port's paths at full size:
 
 * phase 4, the paper's path — the Table-4 workload at ``count_scale=1.0``
   (4.34 M messages) on the 16-node x 16-core cluster: mapping ->
@@ -17,7 +17,19 @@ version on the card, then drives the port's two paths at full size:
   kernel launches counted over these runs alone; then the checks: the
   engine's tokens against a manual decode loop, the prefill logits against
   the plain-PyTorch twin in bfloat16, prefill/decode consistency against
-  the twin's own, and the same weights in float32 against the twin.
+  the twin's own, and the same weights in float32 against the twin;
+* phase 6, SSM serving — mamba2-370m at its published widths in bfloat16
+  (48 Mamba2 layers, the SSD scan through K3): the same prefills and engine,
+  counted the same way; then the kernel model against its plain twin, in
+  bfloat16 and with the same weights in float32: every layer on the twin's
+  input (output, SSM state, conv window), the float32 prefill logits and
+  prefill/decode consistency (which hands K3's final state to the decode
+  recurrence), the bfloat16 logits and consistency at the first layer
+  (over all 48 random layers bfloat16 rounding grows to a third of the
+  logits' scale, so there they are reported only), the engine's first
+  step and its tokens. The engine is not held to a manual decode loop
+  here: admitting a prompt advances every other slot's SSM state, in the
+  reference's engine too.
 
 Needs a CUDA card and ``nvcc``; exits non-zero when either is missing or
 any phase fails. The last line of standard output is ``{"ok": true,
@@ -47,6 +59,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lindley_scan as ls  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.search import search_placement  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -56,7 +69,7 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 # the tensor cores' dense rate; float32 / float64 are the CUDA cores'.
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12, torch.bfloat16: 989e12}
-KERNELS = ("lindley_scan", "flash_attention", "rmsnorm")
+KERNELS = ("lindley_scan", "flash_attention", "rmsnorm", "ssd_scan")
 #: combine = add, add, max per element, plus the final max(U, V)
 FLOPS_PER_ELEMENT = 4
 
@@ -374,8 +387,9 @@ ATTN_CASES = [
     ("d112", 1, 512, 512, 32, 32, 112, True, 0),
 ]
 #: (rows, d): ln1 / ln2 / final-norm rows and qk-norm rows of the 4 x 2048
-#: prefill, then the widths of other configs that are not powers of two
-NORM_CASES = [(8192, 1024), (131072, 128), (7, 3584), (5, 6144)]
+#: prefill, mamba2's gated-norm rows (d_inner 2048) of the same prefill, then
+#: the widths of other configs that are not powers of two
+NORM_CASES = [(8192, 1024), (131072, 128), (8192, 2048), (7, 3584), (5, 6144)]
 
 
 def excess(got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -484,6 +498,93 @@ def check_rmsnorm(device) -> dict:
     return timed
 
 
+#: (name, b, s, h, p, g, n, chunk, valid, initial_state): "path" is
+#: mamba2-370m's per-layer call in the 4 x 2048 prefill; "ragged" a
+#: 1,000-token prompt padded to 1,024 (the last 24 steps dt = 0 and x, B,
+#: C = 0, as MambaBlock pads them); "n64" zamba2-7b's heads (112 of 64,
+#: state 64) with an initial state; "smoke" mamba2's smoke block
+SSD_CASES = [
+    ("path", 4, 2048, 32, 64, 1, 128, 256, 2048, False),
+    ("ragged", 1, 1024, 32, 64, 1, 128, 256, 1000, False),
+    ("n64", 1, 2048, 112, 64, 1, 64, 256, 2048, True),
+    ("smoke", 2, 64, 8, 16, 1, 16, 32, 64, True),
+]
+
+
+def ssd_inputs(gen, b, s, h, p, g, n, valid, init, dtype, device):
+    """x, B, C ~ N(0, 1); dt = softplus(N(0, 1)); A = -linspace(1, 16, h),
+    mamba2's init (A dt reaches about -11 a step at the last head); D ~
+    N(0, 1); steps from ``valid`` on padded as the model pads them."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    x, B, C = rnd(b, s, h, p), rnd(b, s, g, n), rnd(b, s, g, n)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    for t in (x, B, C, dt):
+        t[:, valid:] = 0
+    A = -torch.linspace(1.0, 16.0, h, device=device)
+    st = rnd(b, h, p, n) if init else None
+    return x.to(dtype), dt, A, B.to(dtype), C.to(dtype), rnd(h), st
+
+
+def ssd_bound(b, s, h, p, g, n, chunk, dtype, init):
+    """Least time: x, dt, A, B, C, D (and an initial state) read once, y and
+    the final state written once, against the operations the function needs
+    on these inputs, each MAC counted as 2. Per (batch, group, chunk of L)
+    the lower triangle of C B^T (n MACs a pair), shared by the group's
+    heads, at the peak of the inputs' type (a bf16 product accumulated in
+    float32 may run on the tensor cores); per (batch, head, chunk) the lower
+    triangle of M x (p MACs a pair), C . state and the state update (L n p
+    MACs each), and three operations a pair for the decay and dt weights of
+    M, in float32 at 67 TFLOP/s (M and the state are float32)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    states = b * h * p * n * 4 * (2 if init else 1)
+    nbytes = 2 * b * s * h * p * item + 2 * b * s * g * n * item + b * s * h * 4 \
+        + 2 * h * 4 + states
+    pairs = chunk * (chunk + 1) // 2
+    cb_flops = b * g * (s // chunk) * 2 * n * pairs
+    f32_flops = b * h * (s // chunk) * (2 * p * pairs + 4 * chunk * n * p + 3 * pairs)
+    t_ops = (cb_flops / FLOPS_PER_S[dtype] + f32_flops / FLOPS_PER_S[torch.float32]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
+            cb_flops + f32_flops, nbytes)
+
+
+def check_ssd(device) -> dict:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, s, h, p, g, n, chunk, valid, init in SSD_CASES:
+            x, dt, A, B, C, D, st = ssd_inputs(gen, b, s, h, p, g, n, valid, init,
+                                               dtype, device)
+            y, final = ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk, initial_state=st)
+            torch.cuda.synchronize()
+            want_y, want_final = ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk,
+                                                    initial_state=st)
+            torch.cuda.synchronize()
+            abs_err, over = excess(y, want_y, MODEL_TOL[dtype])
+            st_err, st_over = excess(final, want_final, MODEL_TOL[dtype])
+            row = {"case": name, "shape": [b, s, h, p, g, n], "chunk": chunk,
+                   "valid_steps": valid, "initial_state": init,
+                   "dtype": DTYPE_NAME[dtype], "max_abs_err": abs_err,
+                   "state_max_abs_err": st_err, "tol": MODEL_TOL[dtype],
+                   "max_abs_y": float(want_y.abs().max())}
+            if name == "path":
+                call = lambda: ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+                row["ms"] = time_ms(call, reps=9)
+                row["device_ms"] = device_ms(call)
+                row["plain_ms"] = time_ms(lambda: ssd.ssd_scan_plain(
+                    x, dt, A, B, C, D, chunk=chunk), reps=3)
+                (row["bound_ms"], row["bound_by"], row["flops"],
+                 row["bytes"]) = ssd_bound(b, s, h, p, g, n, chunk, dtype, init)
+                row["library_ms"] = None
+                timed[dtype] = row
+            say("kernels", kernel="ssd_scan", **row)
+            if not (over <= 0 and st_over <= 0):
+                fail(f"ssd_scan disagrees with its plain version: {row}")
+            del x, dt, B, C, y, final, want_y, want_final
+    return timed
+
+
 # ---------------------------------------------------------------------------
 # phase 5 helpers: qwen3-0.6b serving at full width
 # ---------------------------------------------------------------------------
@@ -508,11 +609,12 @@ F32_TOL = 1e-3
 
 
 def counts() -> dict:
-    return {"flash_attention": fa.launch_count, "rmsnorm": rn.launch_count}
+    return {"flash_attention": fa.launch_count, "rmsnorm": rn.launch_count,
+            "ssd_scan": ssd.launch_count}
 
 
 def zero_counts() -> None:
-    fa.launch_count = rn.launch_count = 0
+    fa.launch_count = rn.launch_count = ssd.launch_count = 0
 
 
 def timed_wall(fn):
@@ -578,14 +680,19 @@ def decode_profile(model, steps: int = 5) -> dict:
 
 def consistency_gap(model, toks, full_logits) -> dict:
     """Prefix prefill + teacher-forced decode_step over the last 32 tokens:
-    how far the last logits land from the full prefill's."""
+    how far the last logits land from the full prefill's. A KV cache is
+    copied into one of the full length; an SSM cache (conv window + state)
+    is the prefix prefill's own, handed to the decode recurrence as it is."""
     b, s = toks.shape
     n = s - 32
     _, prefix = model.prefill(toks[:, :n])
-    cache = model.init_cache(b, s)
-    cache["k"][:, :, :n] = prefix["k"]
-    cache["v"][:, :, :n] = prefix["v"]
-    del prefix
+    if "k" in prefix:
+        cache = model.init_cache(b, s)
+        cache["k"][:, :, :n] = prefix["k"]
+        cache["v"][:, :, :n] = prefix["v"]
+        del prefix
+    else:
+        cache = prefix
     for t in range(n, s):
         logits, cache = model.decode_step(cache, toks[:, t:t + 1],
                                           torch.full((b,), t, dtype=torch.int32))
@@ -597,51 +704,97 @@ def consistency_gap(model, toks, full_logits) -> dict:
             "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum())}
 
 
-def serving_path(device) -> dict:
-    """qwen3-0.6b at full width in bf16, weights from a seeded generator:
-    the path's own runs (prefill 4 x 2048 and 1 x 1000, the serving engine),
-    each with the kernel counts set to 0 just before it and read just after;
-    then the checks (kernel model vs its bf16 plain twin, prefill/decode
-    consistency, the engine's greedy tokens vs a manual decode loop), whose
-    launches count nowhere."""
-    cfg = get_config(ARCH)
+def serve_requests(vocab: int) -> list:
+    """16 greedy requests as launch/serve.py makes them."""
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, vocab, int(rng.integers(2, 12))),
+                    max_new_tokens=MAX_NEW) for i in range(N_REQUESTS)]
+
+
+def check_consistency(phase, model, twin, toks, full_logits, twin_logits,
+                      cap=CONSISTENCY_TOL) -> dict:
+    """Prefill/decode consistency of the kernel model, gated by the plain
+    twin's own gap on the same weights and tokens: at most
+    CONSISTENCY_VS_PLAIN times it (for bf16, or one bf16 unit at the largest
+    |logit| where the twin's gap is smaller), and at most ``cap`` of the
+    largest |logit| unless ``cap`` is None."""
+    kernel_gap = consistency_gap(model, toks, full_logits)
+    plain_gap = consistency_gap(twin, toks, twin_logits)
+    top = kernel_gap["max_abs_logit"]
+    bf16 = model.dtype == torch.bfloat16
+    bf16_unit = float(2.0 ** (np.floor(np.log2(top)) - 7)) if bf16 and top > 0 else 0.0
+    limit = max(CONSISTENCY_VS_PLAIN * plain_gap["max_abs_err"], bf16_unit)
+    rule = f"{CONSISTENCY_VS_PLAIN} x plain gap"
+    if bf16:
+        rule = f"max({rule}, one bf16 unit at max |logit|)"
+    if cap is not None:
+        limit, rule = min(limit, cap * top), f"min({rule}, {cap} x max |logit|)"
+    consistency = {"dtype": DTYPE_NAME[model.dtype], "kernels": kernel_gap,
+                   "plain": plain_gap, "limit": limit, "limit_rule": rule}
+    say(phase, step="prefill_decode_consistency", **consistency)
+    if not kernel_gap["max_abs_err"] <= limit:
+        fail(f"{phase}: prefill/decode consistency: {consistency}")
+    return consistency
+
+
+def logits_vs_plain(phase, step, got, want, shape) -> dict:
+    """bf16 logits of the kernel model against its plain twin's: rtol 2e-2
+    and atol 2e-2 of the largest |logit|."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    row = {"shape": list(shape), "max_abs_err": float(diff.max()),
+           "max_abs_logit": scale, "rtol": BF16_TOL, "atol": BF16_TOL * scale,
+           "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum())}
+    say(phase, step=step, **row)
+    if not bool((diff <= BF16_TOL * scale + BF16_TOL * want.abs()).all()):
+        fail(f"{phase} {step}: kernel model vs plain twin: {row}")
+    return row
+
+
+def seeded_model(cfg, device):
+    """``cfg``'s model with weights from a generator seeded 0, and its
+    prompts of PREFILL_SHAPES from a generator seeded 1."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     model = build_model(cfg, device=device).init(gen)
-    n_params = sum(p.numel() for p in model.parameters())
     tok_gen = torch.Generator(device=device)
     tok_gen.manual_seed(1)
     prompts = {shape: torch.randint(0, cfg.vocab_size, shape, generator=tok_gen,
                                     device=device) for shape in PREFILL_SHAPES}
-    main_shape = PREFILL_SHAPES[0]
-    launches, out = {}, {"n_params": n_params}
+    return model, prompts
 
-    # -- 5.1 prefill
+
+def run_path(phase, model, prompts, cache_shapes_ok):
+    """The serving path's own runs (prefill 4 x 2048 and 1 x 1000, then the
+    engine on 16 greedy requests as launch/serve.py makes them), each with
+    the kernel counts set to 0 just before it and read just after.
+    ``cache_shapes_ok(cache, b, s)`` checks a prefill's cache. Returns the
+    metrics (with the launches by run), the main prefill's logits and the
+    served requests."""
+    vocab = model.cfg.vocab_size
+    main_shape = PREFILL_SHAPES[0]
+    launches = {}
+    out = {"n_params": sum(p.numel() for p in model.parameters())}
+
     model.prefill(prompts[main_shape][:, :64])           # warm-up (cuBLAS handles)
     for shape in PREFILL_SHAPES:
         zero_counts()
         (logits, cache), wall = timed_wall(lambda: model.prefill(prompts[shape]))
-        launches[f"prefill_{shape[0]}x{shape[1]}"] = counts()
         b, s = shape
-        if (logits.shape != (b, cfg.vocab_size) or not torch.isfinite(logits).all()
-                or cache["k"].shape != (cfg.n_layers, b, s, cfg.n_kv_heads,
-                                        cfg.resolved_head_dim)):
-            fail(f"prefill {shape}: logits {tuple(logits.shape)}, cache "
-                 f"{tuple(cache['k'].shape)}")
+        launches[f"prefill_{b}x{s}"] = counts()
+        if (logits.shape != (b, vocab) or not torch.isfinite(logits).all()
+                or not cache_shapes_ok(cache, b, s)):
+            fail(f"{phase} prefill {shape}: logits {tuple(logits.shape)}, cache "
+                 f"{ {k: (tuple(v.shape), str(v.dtype)) for k, v in cache.items()} }")
         out[f"prefill_{b}x{s}"] = {"wall_s": wall, "tokens_per_s": b * s / wall}
-        say("serving", step="prefill", batch=b, seq=s, wall_s=wall,
+        say(phase, step="prefill", batch=b, seq=s, wall_s=wall,
             tokens_per_s=b * s / wall, launches=launches[f"prefill_{b}x{s}"])
         if shape == main_shape:
             full_logits = logits
         del logits, cache
 
-    # -- 5.2 the engine: 16 greedy requests as launch/serve.py makes them
-    rng = np.random.default_rng(0)
-    reqs = []
-    for i in range(N_REQUESTS):
-        plen = int(rng.integers(2, 12))
-        reqs.append(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, plen),
-                            max_new_tokens=MAX_NEW))
+    reqs = serve_requests(vocab)
     eng = ServeEngine(model, **ENGINE)
     for r in reqs:
         eng.submit(r)
@@ -651,13 +804,27 @@ def serving_path(device) -> dict:
     steps = eng.ticks + sum(len(r.prompt) for r in reqs)
     n_tok = sum(len(r.output) for r in reqs)
     if not all(r.done and len(r.output) == MAX_NEW for r in reqs):
-        fail("the engine left a request unfinished")
+        fail(f"{phase}: the engine left a request unfinished")
     engine = {"requests": N_REQUESTS, "tokens": n_tok, "wall_s": wall,
               "tokens_per_s": n_tok / wall, "ticks": eng.ticks,
               "decode_steps": steps, "ms_per_decode_step": wall / steps * 1e3}
-    say("serving", step="engine", **engine, launches=launches["engine"])
+    say(phase, step="engine", **engine, launches=launches["engine"])
     out["engine"] = engine
     out["launches"] = launches
+    return out, full_logits, reqs
+
+
+def serving_path(device) -> dict:
+    """qwen3-0.6b at full width in bf16, weights from a seeded generator:
+    the path's own runs (``run_path``); then the checks (kernel model vs its
+    bf16 plain twin, prefill/decode consistency, the engine's greedy tokens
+    vs a manual decode loop), whose launches count nowhere."""
+    cfg = get_config(ARCH)
+    model, prompts = seeded_model(cfg, device)
+    main_shape = PREFILL_SHAPES[0]
+    kv_shape = lambda b, s: (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+    out, full_logits, reqs = run_path(
+        "serving", model, prompts, lambda cache, b, s: cache["k"].shape == kv_shape(b, s))
 
     # -- 5.3 checks. The engine's greedy tokens: the first wave fills slots
     #    0..7 in order, so check three of them by hand
@@ -673,35 +840,198 @@ def serving_path(device) -> dict:
     twin = build_model(cfg, device=device, impl="plain")
     twin.load_state_dict(model.state_dict())
     twin_logits, _ = twin.prefill(toks)
-    got, want = full_logits.float(), twin_logits.float()
-    scale = float(want.abs().max())
-    diff = (got - want).abs()
-    vs_plain = {"shape": list(main_shape), "max_abs_err": float(diff.max()),
-                "max_abs_logit": scale, "rtol": BF16_TOL, "atol": BF16_TOL * scale,
-                "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum())}
-    say("serving", step="bfloat16_kernels_vs_plain", **vs_plain)
-    if not bool((diff <= BF16_TOL * scale + BF16_TOL * want.abs()).all()):
-        fail(f"bfloat16 prefill: kernel model vs plain twin: {vs_plain}")
-    out["bfloat16_vs_plain"] = vs_plain
+    out["bfloat16_vs_plain"] = logits_vs_plain("serving", "bfloat16_kernels_vs_plain",
+                                               full_logits, twin_logits, main_shape)
 
     # prefill/decode consistency, the kernel model's gap held against the
     # plain twin's on the same weights and tokens
-    kernel_gap = consistency_gap(model, toks, full_logits)
-    plain_gap = consistency_gap(twin, toks, twin_logits)
-    top = kernel_gap["max_abs_logit"]
-    bf16_unit = float(2.0 ** (np.floor(np.log2(top)) - 7)) if top > 0 else 0.0
-    limit = min(max(CONSISTENCY_VS_PLAIN * plain_gap["max_abs_err"], bf16_unit),
-                CONSISTENCY_TOL * top)
-    consistency = {"kernels": kernel_gap, "plain": plain_gap, "limit": limit,
-                   "limit_rule": f"min(max({CONSISTENCY_VS_PLAIN} x plain gap, "
-                                 f"one bf16 unit at max |logit|), "
-                                 f"{CONSISTENCY_TOL} x max |logit|)"}
-    say("serving", step="prefill_decode_consistency", **consistency)
-    if not kernel_gap["max_abs_err"] <= limit:
-        fail(f"prefill/decode consistency: {consistency}")
-    out["consistency"] = consistency
+    out["consistency"] = check_consistency("serving", model, twin, toks, full_logits,
+                                           twin_logits)
     del twin, twin_logits, full_logits
     return out, model
+
+
+# ---------------------------------------------------------------------------
+# phase 6: mamba2-370m serving at full width (SSD scan through K3)
+# ---------------------------------------------------------------------------
+SSM_ARCH = "mamba2-370m"
+#: depth of phase 6's bf16 logits and prefill/decode gates (full width):
+#: at 4 layers the bf16 twin already lands 1.4 % of the largest |logit| from
+#: float32, too close to the 2e-2 limit to tell a wrong kernel from rounding
+SHALLOW_LAYERS = 1
+
+
+def ssm_path(device) -> tuple[dict, object]:
+    """mamba2-370m at full width in bf16, weights from a seeded generator:
+    the path's own runs (``run_path``); then the checks against the plain
+    twin, whose launches count nowhere."""
+    cfg = get_config(SSM_ARCH)
+    model, prompts = seeded_model(cfg, device)
+    s_cfg = cfg.ssm
+    conv_c = cfg.d_inner + 2 * s_cfg.n_groups * s_cfg.state_dim
+
+    def caches_ok(cache, b, s):
+        want_ssm = (cfg.n_layers, b, cfg.n_ssm_heads, s_cfg.head_dim, s_cfg.state_dim)
+        return (cache["conv"].shape == (cfg.n_layers, b, s_cfg.conv_dim - 1, conv_c)
+                and cache["ssm"].shape == want_ssm and cache["ssm"].dtype == torch.float32
+                and bool(torch.isfinite(cache["ssm"]).all()))
+    out, full_logits, reqs = run_path("ssm_serving", model, prompts, caches_ok)
+
+    # -- 6.3 checks. Random weights over 48 layers amplify rounding: a one-
+    #    unit difference in a layer's output grows about sixty-fold by the
+    #    logits in bf16, and the bf16 plain twin's logits land about 30 % of
+    #    the largest |logit| from the same weights computed in float32. So the
+    #    gates are: each layer held to its plain twin on the twin's own input
+    #    (teacher-forced, where nothing accumulates) in bf16 and float32; the
+    #    48-layer float32 logits and prefill/decode gap; the bf16 logits and
+    #    prefill/decode gap at SHALLOW_LAYERS (``shallow_bf16``); the engine's
+    #    first step. The 48-layer bf16 logits and gap are reported only
+    toks = prompts[PREFILL_SHAPES[0]]
+    twin, model32, twin32 = plain_and_float32(model, cfg, device)
+    out["layerwise_bfloat16"] = layerwise(model, twin, toks, BF16_TOL)
+    out["layerwise_float32"] = layerwise(model32, twin32, toks, F32_TOL)
+
+    logits = {"kernels": full_logits, "plain": twin.prefill(toks)[0],
+              "kernels_f32": model32.prefill(toks)[0], "plain_f32": twin32.prefill(toks)[0]}
+    out["logits"] = end_to_end_logits(logits, PREFILL_SHAPES[0])
+    out["consistency_float32"] = check_consistency(
+        "ssm_serving", model32, twin32, toks, logits["kernels_f32"], logits["plain_f32"],
+        cap=F32_TOL)
+    out["consistency_bfloat16_reported"] = {
+        "kernels": consistency_gap(model, toks, logits["kernels"]),
+        "plain": consistency_gap(twin, toks, logits["plain"]), "gated": False}
+    say("ssm_serving", step="prefill_decode_consistency_bfloat16_48_layers",
+        **out["consistency_bfloat16_reported"])
+    del logits, full_logits
+
+    # the engine on the twin and on the float32 twin: the same requests. The
+    # first decode step of every engine (slot 0 admits its first prompt
+    # token, the other slots decode token 0 at 0) is gated; where the tokens
+    # part is reported, with the float32 twin's as the yardstick of bf16 noise
+    first_toks = np.zeros((ENGINE["batch"], 1), np.int32)
+    first_toks[0, 0] = reqs[0].prompt[0]
+    first_pos = np.zeros(ENGINE["batch"], np.int32)
+    first = [m.decode_step(m.init_cache(ENGINE["batch"], ENGINE["cache_len"]),
+                           first_toks, first_pos)[0] for m in (model, twin)]
+    first_step = logits_vs_plain("ssm_serving", "engine_first_step_vs_plain",
+                                 first[0], first[1], (ENGINE["batch"], 1))
+    outputs = {}
+    for name, m in (("plain", twin), ("plain_f32", twin32)):
+        other = serve_requests(cfg.vocab_size)
+        other_eng = ServeEngine(m, **ENGINE)
+        for r in other:
+            other_eng.submit(r)
+        other_eng.run()
+        outputs[name] = [r.output for r in other]
+    out["engine_tokens"] = {
+        "kernels_vs_plain": token_agreement([r.output for r in reqs], outputs["plain"]),
+        "plain_vs_plain_f32": token_agreement(outputs["plain"], outputs["plain_f32"]),
+        "first_step": first_step}
+    say("ssm_serving", step="engine_tokens", **out["engine_tokens"])
+    del twin, model32, twin32
+    out["shallow_bfloat16"] = shallow_bf16(model, cfg, toks, device)
+    return out, model
+
+
+def plain_and_float32(model, cfg, device):
+    """The plain twin of ``model`` on its weights, and both models on the
+    same weights in float32."""
+    twin = build_model(cfg, device=device, impl="plain")
+    twin.load_state_dict(model.state_dict())
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32_state = {k: v.float() for k, v in model.state_dict().items()}
+    model32 = build_model(f32_cfg, device=device)
+    model32.load_state_dict(f32_state)
+    twin32 = build_model(f32_cfg, device=device, impl="plain")
+    twin32.load_state_dict(f32_state)
+    return twin, model32, twin32
+
+
+def shallow_bf16(model, cfg, toks, device) -> dict:
+    """The bf16 gates of phase 5 at the first SHALLOW_LAYERS layers of the
+    48 (full width, the same weights and tokens), where rounding has not
+    been amplified: prefill logits vs the plain twin within BF16_TOL of the
+    largest |logit|, and the prefill/decode gap within twice the twin's and
+    CONSISTENCY_TOL of the largest |logit|. The bf16 twin's own distance
+    from float32 must stay under half the logits limit, or the gate could
+    not tell a wrong kernel from rounding."""
+    cut = dataclasses.replace(cfg, n_layers=SHALLOW_LAYERS)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < SHALLOW_LAYERS}
+    short = build_model(cut, device=device)
+    short.load_state_dict(state)
+    twin, _, twin32 = plain_and_float32(short, cut, device)
+    got, want = short.prefill(toks)[0], twin.prefill(toks)[0]
+    row = logits_vs_plain("ssm_serving", f"bfloat16_kernels_vs_plain_{SHALLOW_LAYERS}_layers",
+                          got, want, tuple(toks.shape))
+    f32 = twin32.prefill(toks)[0].float()
+    row["plain_vs_f32"] = float((want.float() - f32).abs().max())
+    say("ssm_serving", step=f"bfloat16_noise_{SHALLOW_LAYERS}_layers",
+        plain_vs_f32=row["plain_vs_f32"], limit=0.5 * row["atol"])
+    if not row["plain_vs_f32"] <= 0.5 * row["atol"]:
+        fail(f"ssm_serving: bf16 rounding at {SHALLOW_LAYERS} layers too large to gate: {row}")
+    return {"layers": SHALLOW_LAYERS, "logits": row,
+            "consistency": check_consistency("ssm_serving", short, twin, toks, got, want)}
+
+
+def layerwise(model, twin, toks, tol: float) -> dict:
+    """Every layer of the kernel model against the twin's on the twin's own
+    input (teacher-forced): the layer's output, its SSM state (K3's final
+    state) and conv window, each within ``tol`` of the tensor's largest
+    magnitude."""
+    worst = {"output": 0.0, "ssm_state": 0.0, "conv": 0.0}
+    x = twin.embed[twin._tokens(toks)]
+    for got_layer, want_layer in zip(model.layers, twin.layers):
+        got, (g_conv, g_ssm) = got_layer(x, return_state=True)
+        want, (w_conv, w_ssm) = want_layer(x, return_state=True)
+        for name, g, w in (("output", got, want), ("ssm_state", g_ssm, w_ssm),
+                           ("conv", g_conv, w_conv)):
+            g, w = g.float(), w.float()
+            if not torch.isfinite(g).all():
+                fail(f"layerwise: non-finite {name}")
+            worst[name] = max(worst[name], float((g - w).abs().max() / w.abs().max()))
+        x = want
+    row = {"dtype": DTYPE_NAME[model.dtype], "layers": len(model.layers),
+           "worst_rel_to_max": worst, "tol": tol}
+    say("ssm_serving", step="layerwise_kernels_vs_plain", **row)
+    if not max(worst.values()) <= tol:
+        fail(f"ssm_serving layerwise: kernel layers vs plain: {row}")
+    return row
+
+
+def end_to_end_logits(logits: dict, shape) -> dict:
+    """The 48-layer prefill's last logits: bf16 kernel model vs bf16 twin
+    and each against the float32 twin (reported: rounding, amplified over 48
+    random layers, puts all three near a third of the largest |logit|), and
+    float32 kernel model vs float32 twin within F32_TOL of the largest
+    |logit| (gated)."""
+    f32 = logits["plain_f32"].float()
+    top = float(f32.abs().max())
+
+    def dist(a, b):
+        return float((a.float() - b.float()).abs().max())
+    row = {"shape": list(shape), "max_abs_logit_f32": top,
+           "bf16_kernels_vs_plain": dist(logits["kernels"], logits["plain"]),
+           "bf16_kernels_vs_f32": dist(logits["kernels"], f32),
+           "bf16_plain_vs_f32": dist(logits["plain"], f32),
+           "f32_kernels_vs_plain": dist(logits["kernels_f32"], f32),
+           "argmax_equal": {name: int((t.float().argmax(-1) == f32.argmax(-1)).sum())
+                            for name, t in logits.items() if name != "plain_f32"}}
+    row["f32_elementwise_1e-3_holds"] = bool(
+        ((logits["kernels_f32"] - f32).abs() <= F32_TOL + F32_TOL * f32.abs()).all())
+    row["gated"] = "f32_kernels_vs_plain"
+    say("ssm_serving", step="prefill_logits", **row)
+    if not row["f32_kernels_vs_plain"] <= F32_TOL * top:
+        fail(f"ssm_serving prefill logits: {row}")
+    return row
+
+
+def token_agreement(a: list, b: list) -> dict:
+    """How many requests got the same tokens, and where the others first
+    part (request, index of the output token)."""
+    differ = [(i, next(j for j, (x, y) in enumerate(zip(oa, ob)) if x != y))
+              for i, (oa, ob) in enumerate(zip(a, b)) if oa != ob]
+    return {"requests_equal": len(a) - len(differ), "first_differences": differ}
 
 
 def float32_twin(device) -> dict:
@@ -762,6 +1092,7 @@ def main() -> int:
     timed = check_kernels(device)
     attn_timed = check_attention(device)
     norm_timed = check_rmsnorm(device)
+    ssd_timed = check_ssd(device)
 
     # -- phase 4: the paper's path at full size, launch counts from 0
     ls.launch_count = 0
@@ -787,12 +1118,29 @@ def main() -> int:
     del model
     float32_twin(device)
 
+    # -- phase 6: mamba2 serving at full width, counted the same way. K3
+    #    runs once a layer in every prefill and never in decode (the O(1)
+    #    recurrence); K4 norms every step
+    ssm, ssm_model = ssm_path(device)
+    ssm_steps = ssm["launches"]
+    if (min(c["rmsnorm"] for c in ssm_steps.values()) <= 0
+            or min(c["ssd_scan"] for step, c in ssm_steps.items()
+                   if step.startswith("prefill")) <= 0
+            or ssm_steps["engine"]["ssd_scan"] != 0):
+        fail(f"the ssm serving path did not launch its kernels as it should: {ssm_steps}")
+    say("ssm_serving", step="decode_profile", **decode_profile(ssm_model))
+    del ssm_model
+
     at = timed[(K_FULL, torch.float64)]     # the shape simulate_batch scans
     attn = attn_timed[torch.bfloat16]       # the serving path's per-layer call
     norm = norm_timed[(8192, 1024, torch.bfloat16)]   # ln1 / ln2 rows of the prefill
+    scan = ssd_timed[torch.bfloat16]        # mamba2's per-layer call in the prefill
 
     def launches_of(name):
-        return {step: c[name] for step, c in by_step.items()}
+        """A kernel's launches in each run of the two serving paths."""
+        steps = {f"{ARCH}.{step}": c[name] for step, c in by_step.items()}
+        steps.update({f"{SSM_ARCH}.{step}": c[name] for step, c in ssm_steps.items()})
+        return steps
 
     kernels = {"kernels": [{
         "name": "lindley_scan", "route": "cuda",
@@ -807,7 +1155,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:92",
-        "launches": serve_launches["flash_attention"],
+        "launches": sum(launches_of("flash_attention").values()),
         "max_abs_err": attn["max_abs_err"], "ms": attn["ms"],
         "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
         "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
@@ -821,7 +1169,7 @@ def main() -> int:
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:40",
-        "launches": serve_launches["rmsnorm"],
+        "launches": sum(launches_of("rmsnorm").values()),
         "max_abs_err": norm["max_abs_err"], "ms": norm["ms"],
         "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
         "bound_by": norm["bound_by"], "library_ms": norm["library_ms"],
@@ -832,9 +1180,25 @@ def main() -> int:
                                               "library_device_ms", "max_abs_err")}
                          for key, r in norm_timed.items() if r is not norm],
         "launches_by_step": launches_of("rmsnorm"),
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:92",
+        "launches": sum(launches_of("ssd_scan").values()),
+        "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"], "library_ms": None,
+        "device_ms": scan["device_ms"], "shape": scan["shape"], "chunk": scan["chunk"],
+        "dtype": scan["dtype"],
+        "float32": {k: ssd_timed[torch.float32][k] for k in
+                    ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "max_abs_err")},
+        "launches_by_step": launches_of("ssd_scan"),
     }]}
     say("serving", step="summary", **{k: v for k, v in serving.items()
                                       if k != "launches"})
+    say("ssm_serving", step="summary", **{k: v for k, v in ssm.items()
+                                          if k != "launches"})
     print(smi.splitlines()[0], flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,8 @@ Public surface:
                     ``flash_attention_plain``
   rmsnorm         — fused RMSNorm (CUDA C++, ``csrc/rmsnorm.cu``):
                     ``rmsnorm``, ``rmsnorm_plain``
+  ssd_scan        — Mamba2 SSD chunked scan (CUDA C++,
+                    ``csrc/ssd_scan.cu``): ``ssd_scan``, ``ssd_scan_plain``
   ref             — plain PyTorch versions of the model zoo's kernels
   ops             — the model zoo's dispatch by tensor device
   _build          — nvcc + ctypes build/bind helper (first use, cached by

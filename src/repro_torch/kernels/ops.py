@@ -14,6 +14,7 @@ from typing import Optional
 from . import flash_attention as _fa
 from . import ref
 from . import rmsnorm as _rn
+from . import ssd_scan as _ssd
 
 IMPLS = (None, "plain")
 
@@ -44,5 +45,20 @@ def rmsnorm(x, scale, eps: float = 1e-5, *, impl: Optional[str] = None):
     return _rn.rmsnorm(x, scale, eps)
 
 
-# re-exported plain helper (no kernel variant)
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, initial_state=None,
+             impl: Optional[str] = None):
+    # unlike the reference (src/repro/kernels/ops.py:56), an initial state
+    # goes to the kernel too: it loads the state in place of zeros
+    if _plain(impl):
+        return ref.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
+                            initial_state=initial_state)
+    return _ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
+                         initial_state=initial_state)
+
+
+# re-exported plain helpers (no kernel variant, in the reference either:
+# src/repro/kernels/ops.py:63-66)
 swiglu = ref.swiglu
+ssd_decode_step = ref.ssd_decode_step
+causal_conv1d = ref.causal_conv1d
+conv1d_step = ref.conv1d_step

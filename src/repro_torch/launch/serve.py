@@ -4,7 +4,8 @@
       --requests 16 --batch 8 --cache-len 2048 --max-new-tokens 32
 
 runs on the CUDA card (``--device cuda``, the default; it raises without
-one). ``--smoke --device cpu`` serves the reduced config on the host.
+one); ``--arch mamba2-370m`` serves the SSM model the same way.
+``--smoke --device cpu`` serves the reduced config on the host.
 Weights are random, drawn from a ``torch.Generator`` seeded with 0;
 loading a checkpoint (the reference's ``--ckpt-dir``) waits for the port
 of ``ckpt/``.

@@ -2,7 +2,9 @@
 
 The reference keeps a model's parameters as a tree of arrays with the
 layer axis stacked (``{"layers": {"attn": {"wq": (L, d, q_dim), ...},
-"ln1": (L, d), ...}, "embed": ..., "final_norm": ...}``). Handed over as
+"ln1": (L, d), ...}, "embed": ..., "final_norm": ...}``; a Mamba layer's
+leaves are ``wz``, ``wx``, ``wB``, ``wC``, ``wdt``, ``dt_bias``, ``A_log``,
+``D``, ``conv_w``, ``norm``, ``ln1``, ``out_proj``). Handed over as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on the
 caller's side — nothing here imports JAX), :func:`state_from_reference`
 splits the layer axis and names each array as the port's modules do;
@@ -19,8 +21,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-#: reference leaves that are RMSNorm scales (``<name>.scale`` in the port)
-_NORMS = frozenset({"ln1", "ln2", "q_norm", "k_norm", "final_norm"})
+#: reference leaves that are RMSNorm scales (``<name>.scale`` in the port);
+#: ``norm`` is the Mamba block's gated norm
+_NORMS = frozenset({"ln1", "ln2", "q_norm", "k_norm", "final_norm", "norm"})
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -44,7 +47,8 @@ def _key(path: tuple) -> str:
 
 
 def state_from_reference(params: Mapping) -> dict[str, torch.Tensor]:
-    """The port's state dict (CPU tensors) of a dense LM's reference tree."""
+    """The port's state dict (CPU tensors) of a reference LM's tree (dense
+    or ssm), every leaf in its own dtype, bit for bit."""
     state = {}
     for path, arr in _leaves(params):
         if path[0] == "layers":

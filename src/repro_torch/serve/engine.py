@@ -1,11 +1,13 @@
 """Batched serving engine: slot-based continuous batching.
 
 The port of ``src/repro/serve/engine.py``. A fixed pool of ``batch`` slots
-shares one KV cache. Requests are admitted into free slots (their prompt
-runs token by token through ``decode_step`` into the shared cache), every
-engine tick runs ONE decode step for all slots, finished slots are
-recycled. The step never changes shape; admission just rewrites cache
-rows.
+shares one cache (KV for a dense model, conv window + SSM state for
+mamba2). Requests are admitted into free slots (their prompt runs token by
+token through ``decode_step`` into the shared cache), every engine tick
+runs ONE decode step for all slots, finished slots are recycled. The step
+never changes shape; admission just rewrites cache rows — which resets
+nothing: a recycled slot's SSM state starts from what its last request
+left, as in the reference.
 
 Sampling: greedy (argmax on the host, first index on ties) or temperature
 (per request, from a ``torch.Generator`` seeded with ``seed``; its draws
@@ -21,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models import Model
+from ..models import Model, SSMModel
 
 
 @dataclasses.dataclass
@@ -37,7 +39,7 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, model: Model, batch: int, cache_len: int, seed: int = 0):
+    def __init__(self, model: Model | SSMModel, batch: int, cache_len: int, seed: int = 0):
         self.model = model
         self.batch = batch
         self.cache_len = cache_len
@@ -81,8 +83,11 @@ class ServeEngine:
         req.output.append(int(tok))
 
     def _step_one(self, slot: int, tok: int, pos: int) -> np.ndarray:
-        # every other slot re-decodes its pending token at its pos: the cache
-        # write there is idempotent
+        # every other slot re-decodes its pending token at its pos. For a KV
+        # cache that write is idempotent; for an SSM state (mamba2) it is not:
+        # the other slots' conv windows and states advance once more per
+        # admitted prompt token. The reference's engine does the same, and the
+        # port keeps it (ROADMAP queue 3)
         toks = self.cur_tok.copy()
         toks[slot] = int(tok)
         posv = self.pos.copy()

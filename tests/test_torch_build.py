@@ -12,7 +12,7 @@ import pytest
 
 from repro_torch.kernels import _build
 
-SOURCES = ("lindley_scan", "flash_attention", "rmsnorm")
+SOURCES = ("lindley_scan", "flash_attention", "rmsnorm", "ssd_scan")
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:
@@ -30,13 +30,13 @@ def build_dir(tmp_path, monkeypatch):
 
 
 def test_sources_build_in_parallel_and_are_not_rebuilt(tmp_path, build_dir, monkeypatch):
-    # each compiler logs "start", waits until all three have started (or
+    # each compiler logs "start", waits until all have started (or
     # 30 s, so a serial build finishes, late, and fails the check below),
     # logs "end" and writes the file after -o
     log = tmp_path / "log"
     nvcc = _fake_nvcc(tmp_path, f'echo start >> "{log}"\n'
                                 'i=0\n'
-                                f'while [ "$(grep -c start "{log}")" -lt 3 ] '
+                                f'while [ "$(grep -c start "{log}")" -lt {len(SOURCES)} ] '
                                 '&& [ $i -lt 300 ]; do sleep 0.1; i=$((i+1)); done\n'
                                 f'echo end >> "{log}"\n'
                                 'while [ "$1" != "-o" ]; do shift; done\n'
@@ -44,7 +44,8 @@ def test_sources_build_in_parallel_and_are_not_rebuilt(tmp_path, build_dir, monk
     monkeypatch.setattr(_build, "find_nvcc", lambda: nvcc)
     _build.build(SOURCES)
     events = log.read_text().split()
-    assert events == ["start"] * 3 + ["end"] * 3, f"not in parallel: {events}"
+    n = len(SOURCES)
+    assert events == ["start"] * n + ["end"] * n, f"not in parallel: {events}"
     for name in SOURCES:
         lib = _build.library_path(name)
         assert lib.parent == build_dir and lib.read_text() == "built\n"

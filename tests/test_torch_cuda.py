@@ -175,3 +175,86 @@ def test_kernel_wrappers_raise_on_cuda_tensors_they_do_not_take(card):
         rn.rmsnorm(x, torch.ones(20000, device=card))    # row longer than the kernel holds
     with pytest.raises(ValueError):
         rn.rmsnorm(x[:, ::2], torch.ones(10000, device=card))
+
+
+# ---------------------------------------------------------------------------
+# SSD chunked scan (K3) against its plain version, and the SSM model
+# ---------------------------------------------------------------------------
+#: (b, s, h, p, g, n, chunk): mamba2's smoke block, two of the reference's
+#: sweep shapes, the serving path's 4 x 2048 prefill, a 1,000-token prompt
+#: padded to 1,024, and zamba2's heads (n = 64)
+SSD_CASES = [(2, 64, 8, 16, 1, 16, 32), (1, 64, 2, 8, 1, 4, 16), (2, 96, 4, 16, 4, 8, 32),
+             (4, 2048, 32, 64, 1, 128, 256), (1, 1024, 32, 64, 1, 128, 256),
+             (1, 512, 112, 64, 1, 64, 256)]
+
+
+def _ssd_inputs(seed, b, s, h, p, g, n, dtype, device, init):
+    """The model's ranges: dt = softplus(N(0, 1)), A = -linspace(1, 16, h)
+    (A dt reaches about -11 a step at the last head)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(a.astype(np.float32)).to(device, dt)
+    return (t(rng.standard_normal((b, s, h, p)), dtype),
+            torch.nn.functional.softplus(t(rng.standard_normal((b, s, h)))),
+            -torch.linspace(1.0, 16.0, h, device=device),
+            t(rng.standard_normal((b, s, g, n)), dtype),
+            t(rng.standard_normal((b, s, g, n)), dtype),
+            t(rng.standard_normal(h)),
+            t(rng.standard_normal((b, h, p, n))) if init else None)
+
+
+@pytest.mark.parametrize("init", [False, True], ids=["zeros", "initial_state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_CASES, ids=str)
+def test_ssd_scan_matches_plain_version(card, dtype, init, b, s, h, p, g, n, chunk):
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dt, A, B, C, D, st = _ssd_inputs(s + h, b, s, h, p, g, n, dtype, card, init)
+    before = ssd.launch_count
+    y, final = ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk, initial_state=st)
+    torch.cuda.synchronize()
+    assert ssd.launch_count == before + 1
+    want_y, want_final = ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk,
+                                            initial_state=st)
+    assert y.dtype == dtype and y.shape == x.shape and final.shape == (b, h, p, n)
+    assert torch.isfinite(y).all() and torch.isfinite(final).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(final, want_final, rtol=tol, atol=tol)
+
+
+def test_ssd_scan_raises_on_cuda_tensors_it_does_not_take(card):
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dt, A, B, C, D, _ = _ssd_inputs(0, 1, 64, 2, 128, 1, 16, torch.float32, card, False)
+    with pytest.raises(ValueError, match="p <= 64"):
+        ssd.ssd_scan(x, dt, A, B, C, D, chunk=32)        # head dim 128 > 64
+    x, dt, A, B, C, D, _ = _ssd_inputs(0, 1, 64, 2, 16, 1, 6, torch.float32, card, False)
+    with pytest.raises(ValueError, match="n % 4 == 0"):
+        ssd.ssd_scan(x, dt, A, B, C, D, chunk=32)        # state 6
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, A, B, C, D, chunk=48)        # 64 % 48
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt.cpu(), A, B, C, D, chunk=32)
+
+
+def test_ssm_model_on_the_card_matches_its_plain_twin(card):
+    """mamba2's smoke config in float32: the kernel model (K3, K4) against
+    the plain twin on the same weights, prefill (ragged: 40 tokens, chunk
+    32) and decode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import build_model
+    cfg = get_smoke_config("mamba2-370m")
+    model = build_model(cfg).init(torch.Generator(device=card).manual_seed(0))
+    twin = build_model(cfg, device=card, impl="plain")
+    twin.load_state_dict(model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 40))).to(card)
+    before = ssd.launch_count
+    got, cache = model.prefill(toks)
+    assert ssd.launch_count == before + cfg.n_layers
+    want, want_cache = twin.prefill(toks)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["ssm"], want_cache["ssm"], rtol=1e-4, atol=1e-4)
+    step = torch.tensor([[3], [5]], device=card)
+    got, _ = model.decode_step(cache, step, torch.tensor([40, 40]))
+    want, _ = twin.decode_step(want_cache, step, torch.tensor([40, 40]))
+    assert ssd.launch_count == before + cfg.n_layers      # decode runs no scan
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

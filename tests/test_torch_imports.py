@@ -32,12 +32,13 @@ def test_the_walk_covers_the_slice():
                  "core/simulator.py", "core/sim_scan.py", "core/convert.py",
                  "search/optimizer.py", "kernels/lindley_scan.py",
                  "kernels/_build.py", "kernels/flash_attention.py",
-                 "kernels/rmsnorm.py", "kernels/ref.py", "kernels/ops.py",
+                 "kernels/rmsnorm.py", "kernels/ssd_scan.py", "kernels/ref.py",
+                 "kernels/ops.py", "models/ssm.py",
                  "configs/base.py", "configs/qwen3_0_6b.py",
                  "models/layers.py", "models/model.py", "models/convert.py",
                  "serve/engine.py", "launch/serve.py"):
         assert want in names
-    for cu in ("lindley_scan.cu", "flash_attention.cu", "rmsnorm.cu"):
+    for cu in ("lindley_scan.cu", "flash_attention.cu", "rmsnorm.cu", "ssd_scan.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file()
 
 
@@ -63,6 +64,7 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import repro_torch.core.convert, repro_torch.search\n"
         "import repro_torch.kernels.lindley_scan\n"
         "import repro_torch.kernels.ops, repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
         "import repro_torch.models.convert, repro_torch.serve\n"
         "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules\n"

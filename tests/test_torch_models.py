@@ -1,4 +1,5 @@
-"""The port's model zoo (dense family) against the reference, on the CPU.
+"""The port's model zoo (dense family) against the reference, on the CPU
+(the SSM family: ``tests/test_torch_ssm.py``).
 
 Configs are data copied across and must equal the reference's. The model
 is qwen3's smoke config: the reference initialises its parameters
@@ -28,6 +29,7 @@ from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import build_model, convert
+from repro_torch.models.model import NOT_PORTED
 
 torch.set_num_threads(1)
 
@@ -206,7 +208,7 @@ def test_seeded_init_is_deterministic_and_has_the_reference_scales():
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if jconfigs.get_config(a).family != "dense"])
+                                  if jconfigs.get_config(a).family in NOT_PORTED])
 def test_families_not_yet_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(configs.get_smoke_config(arch), device="cpu")
