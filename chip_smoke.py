@@ -154,22 +154,31 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 5) -> float:
-    """Device time of ``fn`` per call: the summed duration of every kernel
-    it launched, from a ``torch.profiler`` trace of ``reps`` warm calls.
-    Unlike :func:`time_ms` this leaves out the host's issue time, which the
-    event pair of a single call on an idle stream includes."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of ``fn`` per call: CUDA events around ``reps`` calls
+    queued behind a sleep kernel, so that the host has issued every call
+    before the card reaches the first. Unlike :func:`time_ms` this leaves
+    out the host's issue time (the gaps between back-to-back kernels stay
+    in). The sleep is lengthened until it outlasts the issue. (A
+    ``torch.profiler`` trace lost kernels of single calls on the card.)"""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = 1 << 22
+    for _ in range(6):
+        begin, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        begin.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us else None
+        if issue_ms < 0.8 * begin.elapsed_time(start):
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail("device_ms: the host could not issue the calls ahead of the card")
 
 
 def bound_ms(b: int, n: int, dtype) -> tuple[float, str, int]:
@@ -202,6 +211,7 @@ def check_kernels(device) -> dict:
             # the fixed cost of its launches, which the one-row time is read against
             row["ms"] = time_ms(lambda: ls.lindley_scan(u, v), reps=9)
             if n == N_FULL:
+                row["device_ms"] = device_ms(lambda: ls.lindley_scan(u, v))
                 row["plain_ms"] = time_ms(lambda: ls.lindley_scan_plain(u, v),
                                           reps=3)
                 row["bound_ms"], row["bound_by"], row["bytes"] = bound_ms(b, n, dtype)
@@ -375,8 +385,9 @@ DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 #: the tolerances of tests/test_kernels.py:40-49 (and of the RMSNorm sweep)
 MODEL_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: (name, B, Sq, Skv, H, KVH, D, causal, q_offset); "path" is qwen3-0.6b's
-#: per-layer call in the 4 x 2048 prefill. bf16 runs on the tensor-core
-#: kernel, float32 on the CUDA-core one
+#: per-layer call in the 4 x 2048 prefill, "ragged" its call in the 1 x 1000
+#: prefill (both timed). bf16 runs on the TMA / wgmma kernel, float32 on the
+#: CUDA-core one
 ATTN_CASES = [
     ("path", 4, 2048, 2048, 16, 8, 128, True, 0),
     ("ragged", 1, 1000, 1000, 16, 8, 128, True, 0),
@@ -386,6 +397,7 @@ ATTN_CASES = [
     ("d64", 2, 512, 512, 16, 8, 64, True, 0),
     ("d112", 1, 512, 512, 32, 32, 112, True, 0),
 ]
+TIMED_ATTN = ("path", "ragged")
 #: (rows, d): ln1 / ln2 / final-norm rows and qk-norm rows of the 4 x 2048
 #: prefill, mamba2's gated-norm rows (d_inner 2048) of the same prefill, then
 #: the widths of other configs that are not powers of two
@@ -437,7 +449,7 @@ def check_attention(device) -> dict:
                    "causal": causal, "q_offset": q_offset,
                    "dtype": DTYPE_NAME[dtype], "max_abs_err": abs_err,
                    "tol": MODEL_TOL[dtype]}
-            if name == "path":
+            if name in TIMED_ATTN:
                 row["ms"] = time_ms(lambda: fa.flash_attention(
                     q, k, v, causal=causal, q_offset=q_offset), reps=9)
                 row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
@@ -456,7 +468,7 @@ def check_attention(device) -> dict:
                 (row["bound_ms"], row["bound_by"], row["flops"],
                  row["bytes"]) = attn_bound(b, sq, skv, h, kvh, d, causal,
                                             q_offset, dtype)
-                timed[dtype] = row
+                timed[(name, dtype)] = row
                 del qt, kt, vt, lib
             say("kernels", kernel="flash_attention", **row)
             if not over <= 0:
@@ -590,6 +602,7 @@ def check_ssd(device) -> dict:
 # ---------------------------------------------------------------------------
 ARCH = "qwen3-0.6b"
 PREFILL_SHAPES = [(4, 2048), (1, 1000)]
+PREFILL_REPEATS = 4
 ENGINE = dict(batch=8, cache_len=2048)
 N_REQUESTS, MAX_NEW = 16, 32
 #: prefill/decode consistency in bf16 (tests/test_models.py:97 uses 5e-2 for
@@ -642,12 +655,33 @@ def manual_greedy(model, prompt, max_new: int, slot: int) -> list:
     return out
 
 
+def trace_split(fn, calls: int, top: int) -> dict:
+    """Where the device time of ``fn`` goes: from a torch.profiler trace of
+    ``calls`` warm calls, the device time per call, the kernels per call
+    and the ``top`` largest kernels by device time per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ms": sum(by_name.values()) / calls if n_kernels else None,
+            "kernels": n_kernels / calls,
+            "top_kernels_ms": [[name[:80], ms / calls] for name, ms in largest]}
+
+
 def decode_profile(model, steps: int = 5) -> dict:
     """Where one decode step's time goes (batch 8, cache 2048): wall per
     step, and from a torch.profiler trace the device time per step, the
     kernels launched per step and the five largest device-time kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cache = model.init_cache(ENGINE["batch"], ENGINE["cache_len"])
     toks = np.arange(ENGINE["batch"], dtype=np.int32)[:, None]
     pos = np.full(ENGINE["batch"], 100, np.int32)
@@ -657,25 +691,14 @@ def decode_profile(model, steps: int = 5) -> dict:
     for _ in range(9):
         _, wall = timed_wall(lambda: model.decode_step(cache, toks, pos))
         walls.append(wall * 1e3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            model.decode_step(cache, toks, pos)
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    dev_ms = sum(by_name.values()) / steps
+    split = trace_split(lambda: model.decode_step(cache, toks, pos), steps, top=5)
+    dev_ms = split["device_ms"]
     wall_ms = statistics.median(walls)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"wall_ms_per_step": wall_ms,
-            "device_ms_per_step": dev_ms if n_kernels else "not measured",
-            "device_idle_share": (1 - dev_ms / wall_ms) if n_kernels else "not measured",
-            "device_kernels_per_step": n_kernels / steps,
-            "top_kernels_ms_per_step": [[name[:80], ms / steps] for name, ms in top]}
+            "device_ms_per_step": dev_ms if dev_ms else "not measured",
+            "device_idle_share": (1 - dev_ms / wall_ms) if dev_ms else "not measured",
+            "device_kernels_per_step": split["kernels"],
+            "top_kernels_ms_per_step": split["top_kernels_ms"]}
 
 
 def consistency_gap(model, toks, full_logits) -> dict:
@@ -793,6 +816,17 @@ def run_path(phase, model, prompts, cache_shapes_ok):
         if shape == main_shape:
             full_logits = logits
         del logits, cache
+        # host-side wall times vary between calls: the same prefill again,
+        # uncounted, for the median; and where its device time goes
+        walls = [wall] + [timed_wall(lambda: model.prefill(prompts[shape]))[1]
+                          for _ in range(PREFILL_REPEATS)]
+        out[f"prefill_{b}x{s}"]["median_wall_s"] = statistics.median(walls)
+        split = trace_split(lambda: model.prefill(prompts[shape]), 2, top=8)
+        say(phase, step="prefill_repeats", batch=b, seq=s, wall_s=walls,
+            median_wall_s=statistics.median(walls),
+            median_tokens_per_s=b * s / statistics.median(walls),
+            device_ms=split["device_ms"], device_kernels=split["kernels"],
+            top_kernels_ms=split["top_kernels_ms"])
 
     reqs = serve_requests(vocab)
     eng = ServeEngine(model, **ENGINE)
@@ -1132,7 +1166,7 @@ def main() -> int:
     del ssm_model
 
     at = timed[(K_FULL, torch.float64)]     # the shape simulate_batch scans
-    attn = attn_timed[torch.bfloat16]       # the serving path's per-layer call
+    attn = attn_timed[("path", torch.bfloat16)]   # the serving path's per-layer call
     norm = norm_timed[(8192, 1024, torch.bfloat16)]   # ln1 / ln2 rows of the prefill
     scan = ssd_timed[torch.bfloat16]        # mamba2's per-layer call in the prefill
 
@@ -1148,7 +1182,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/lindley_scan.py:100",
         "launches": path_launches, "max_abs_err": at["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
-        "bound_by": at["bound_by"], "library_ms": None,
+        "bound_by": at["bound_by"], "library_ms": None, "device_ms": at["device_ms"],
         "shape": at["shape"], "dtype": at["dtype"],
         "launches_by_step": path["launches"],
     }, {
@@ -1161,9 +1195,12 @@ def main() -> int:
         "bound_by": attn["bound_by"], "library_ms": attn["library_ms"],
         "device_ms": attn["device_ms"], "library_device_ms": attn["library_device_ms"],
         "shape": attn["shape"], "dtype": attn["dtype"],
-        "float32": {k: attn_timed[torch.float32][k] for k in
-                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                     "max_abs_err")},
+        "float32": {k: attn_timed[("path", torch.float32)][k] for k in
+                    ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "library_device_ms", "max_abs_err")},
+        "ragged": {k: attn_timed[("ragged", torch.bfloat16)][k] for k in
+                   ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms", "max_abs_err")},
         "launches_by_step": launches_of("flash_attention"),
     }, {
         "name": "rmsnorm", "route": "cuda",

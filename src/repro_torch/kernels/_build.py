@@ -17,6 +17,8 @@ import subprocess
 from pathlib import Path
 from typing import Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: no --use_fast_math: the scan's infinities, the softmax's exp and the
@@ -88,3 +90,15 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def launch_on(device, fn, *args) -> int:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream and return its CUDA error code. The current device is switched
+    (and restored) only when it is not ``device`` already, and the stream
+    is read as a raw handle: both are host time that every launch of a
+    short kernel pays."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))

@@ -13,24 +13,23 @@
 // (flash_attention.py:59), l sums the unrounded p; o = acc / l.
 // GQA / MQA: the kv head of the flattened index bh is
 // (bh / H) * KVH + (bh % H) / (H / KVH), read in place: k and v are never
-// repeated in memory. The layouts are the reference's, read through strides,
-// so the wrapper transposes nothing.
+// repeated in memory. The layouts are the reference's, read through strides
+// (or tensor maps), so the wrapper transposes nothing.
 //
 // The TPU kernel walks the kv blocks as a sequential grid axis with m / l /
-// acc in VMEM scratch. Here one block owns one (b*h, 64-row query tile) and
-// walks the kv tiles in a loop, m / l / acc in registers. Any Sq and Skv:
-// the ragged query tile is zero-filled and not written back, and keys past
+// acc in VMEM scratch. Here one block owns one (b*h, query tile) and walks
+// the kv tiles in a loop, m / l / acc in registers. Any Sq and Skv: rows of
+// a ragged query tile are zero-filled and not written back, and keys past
 // Skv score -inf, so they weigh exactly 0 (with q_offset >= 0 key 0 is
 // visible to every row, so m is finite after the first tile and no NaN
-// forms). Causal kv tiles wholly above the diagonal are skipped; query tiles
-// run longest first (blockIdx.x reversed).
+// forms). Causal kv tiles wholly above the diagonal are never loaded; query
+// tiles run longest first (blockIdx.x reversed).
 //
 // Two kernels, one contract:
-// * flash_fwd_mma (bfloat16 — the serving path): the products on the tensor
-//   cores through mma.sync.m16n8k16 with float32 accumulation; see its note
-//   below. It takes the head dims of the configs (32, 64, 112, 128) and
-//   16-byte aligned operands; any other bf16 call returns
-//   cudaErrorInvalidValue.
+// * flash_fwd_wgmma (bfloat16, the serving path): TMA loads into an
+//   mbarrier ring, both products on wgmma; see its note below. It takes the
+//   head dims of the configs (32, 64, 112, 128) and 16-byte aligned
+//   operands; any other bf16 call returns cudaErrorInvalidValue.
 // * flash_fwd (float32, any head dim up to 128): float32 FMAs on the CUDA
 //   cores, the tiles staged in shared memory.
 //   Thread (ty, tx) of a 16 x 16 block owns query rows ty + 16 i (i < 4),
@@ -41,15 +40,20 @@
 //   block, three blocks per SM.
 //
 // Bound: at the serving path's shape (4, 2048, 16, 128) causal in bf16 the
-// least time is set by operations (4 * B * H * D * visible pairs at the
-// tensor cores' 989 TFLOP/s), not by bytes. Neither kernel pipelines its
-// loads (no cp.async / TMA) nor uses wgmma: they are the simple, exact forms,
-// and their distance from the bound is in PERF.md.
+// least time is set by operations (4 * B * H * D * visible pairs, 68.75
+// GFLOP, at the tensor cores' 989 TFLOP/s: 0.0695 ms), not by bytes. The
+// wgmma kernel runs it in 0.18 device ms on an H100 (38 % of the bound;
+// scaled_dot_product_attention 0.14); chip_smoke.py measures it and
+// PERF.md keeps the numbers.
 //
 // Plain C interface (bound with ctypes): flash_attention_f32 /
 // flash_attention_bf16 return the cudaError_t of the launch. Nothing is
 // allocated and nothing synchronises here. Compile without fast-math.
+// The bf16 kernel's tensor maps are encoded with the driver's
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// library links nothing beyond the CUDA runtime.
 
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -210,33 +214,211 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k, const float*
   }
 }
 
-// ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores: mma.sync.m16n8k16 (bf16 in, float32 out).
-// One block of 4 warps owns a 64-row query tile; warp w owns rows
-// 16 w .. 16 w + 15 and keeps its q fragments in registers for the whole
-// walk. A kv tile of 64 keys is staged in shared memory as raw bf16 (rows
-// padded by 8 elements, so the fragment loads hit 32 distinct banks). The
-// score fragments of q.k become, after the online-softmax update, the A
-// fragments of P.V directly (rounded to bf16 as the reference rounds p), so
-// P never leaves registers. One instance per head dim of the configs.
-// Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
-//   A (16 x 16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
-//                           a3 = (g+8, 2t+8..)
-//   B (16 x 8, k-major):    b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
-//   C (16 x 8):             c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
-// The lower-indexed element of each pair sits in the low 16 bits.
-// ---------------------------------------------------------------------------
-constexpr int MMA_BQ = 64;
-constexpr int MMA_BK = 64;
-constexpr int MMA_THREADS = 128;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// ---------------------------------------------------------------------------
+// bfloat16 on Hopper's tensor cores: TMA, an mbarrier ring and wgmma.
+//
+// One block of 288 threads owns a 128-row query tile of one (b, h): two
+// consumer warpgroups (warps 0-3 and 4-7) of 64 rows each, wgmma's M, and
+// one producer warp (warp 8) whose first lane issues every load.
+// * Shared memory, by TMA: Q once (128 rows), then K and V tiles of 128 keys
+//   in a ring of STAGES (3 at D = 128, 4 below), each stage with a K-full,
+//   a V-full and an empty mbarrier. The producer refills a stage as soon as
+//   all eight consumer warps have released it, so loads run ahead of the
+//   math by STAGES - 1 tiles. Every tile is stored as boxes of ROW-byte rows
+//   (64 bf16 columns with 128-byte swizzle; D = 32 in one 64-byte-swizzled
+//   box), the layout wgmma's descriptors read without bank conflicts.
+// * S = Q K^T: wgmma m64n128k16, both operands in shared memory, K-major as
+//   stored (D / 16 instructions a tile).
+// * Online softmax on the accumulator fragments, in registers. Each thread
+//   holds 2 rows x 32 scores. The mask runs only on tiles that the causal
+//   diagonal or the end of Skv crosses. The scale and log2(e) fold into one
+//   FMA before the special-function unit's 2^x (ex2.approx.ftz):
+//   p = 2^(s c - m c), c = D**-0.5 log2(e). The masking sentinels are
+//   applied to the unscaled score (-1e30 masked, -inf past Skv), which
+//   changes no reachable result: key 0 is visible to every row, so masked
+//   keys weigh exactly 0 either way. Against the plain version's
+//   exp(s scale - m) the largest difference at the path shape stays one
+//   bf16 unit of the output (0.015625 at |o| < 4), as with expf.
+// * O += P V: wgmma m64nDk16 with P from registers (RS): the S fragments,
+//   rounded pairwise to bf16, are the A fragments, so P never touches
+//   shared memory; V is MN-major, read through the descriptor's transpose
+//   bit. l sums the unrounded p.
+// * Epilogue: O / l rounded to bf16 into this warpgroup's own (finished) Q
+//   rows, swizzled as the Q boxes, then one TMA store a box, which clips
+//   rows past Sq and columns past D.
+// Registers: 165 a thread at D = 128, no spills, under the 168 that ptxas
+// allows this 288-thread block (as it would 384 threads). That leaves no
+// room for a second set of S accumulators, so the two products of a tile
+// are issued one after the other: a ping-pong schedule that batched
+// P_{t-1} V with S_t was serialized by ptxas for want of registers, and
+// ran slower.
+// Head dim 112 runs on the 128-wide tiles: the second box reads zeros past
+// column 112 (TMA fills out-of-bounds reads with 0) and the store is clipped
+// there. TMA zero-fills keys past Skv too, which would score 0, so the Skv
+// mask stays.
+// Fragment layout of a wgmma accumulator (m64nN, f32): warp w of the
+// warpgroup owns rows 16 w .. 16 w + 15; with g = lane / 4, t = lane % 4,
+// element 4 j + e is row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2).
+// The A fragment of m64k16 in registers is mma.m16n8k16's: a0 = (g, 2t..),
+// a1 = (g + 8, 2t..), a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..), the
+// lower-indexed element of each pair in the low 16 bits.
+// ---------------------------------------------------------------------------
+constexpr int BM = 128;                   // query rows per block
+constexpr int BN = 128;                   // keys per kv tile (the S product is m64n128)
+constexpr int CONSUMER_WARPS = 8;         // two warpgroups
+constexpr int WG_THREADS = 288;           // + one producer warp
+constexpr int SMEM_OPT_IN = 232448;       // a block's shared memory on sm_90
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int DP = D == 112 ? 128 : D;             // columns a tile holds
+  static constexpr int ROW = DP * 2 < 128 ? DP * 2 : 128;   // bytes per swizzled row
+  static constexpr int BOXC = ROW / 2;                      // columns per TMA box
+  static constexpr int NBOX = DP / BOXC;
+  static constexpr uint64_t LAYOUT = ROW == 128 ? 1 : 2;    // descriptor: 128B / 64B swizzle
+  static constexpr uint32_t SWZ = ROW == 128 ? 7 : 3;       // address bits 7.. XORed into 4..
+  static constexpr int Q_BYTES = BM * DP * 2;
+  static constexpr int KV_BYTES = BN * DP * 2;              // one K (or V) tile
+  static constexpr int BAR_BYTES = 128;
+  static constexpr int FIT = (SMEM_OPT_IN - 1024 - BAR_BYTES - Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
+  static_assert(STAGES >= 2 && (1 + 3 * STAGES) * 8 <= BAR_BYTES, "shared memory plan");
+  static_assert(D == 32 || D == 64 || D == 112 || D == 128, "head dims of the configs");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// spin until the phase of `bar` with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: one box of a 4-D map, coordinates innermost first, into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout (PTX ISA, "Matrix Descriptor")
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 32) += A (64 x 16, bf16 fragments in registers) . B (16 x 32), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64) += A (64 x 16, bf16 fragments in registers) . B (16 x 64), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, float32) (+)= A (64 x 16) . B (16 x 128), A and B in shared memory, K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// D (64 x 128) += A (64 x 16, bf16 fragments in registers) . B (16 x 128), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n32(d, a, db);
+}
+
+// 2^x on the special-function unit; flushes results below 2^-126 to 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -244,164 +426,221 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
+// S = Q K^T for one warpgroup's 64 rows and a 128-key tile, issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[BN / 2], uint32_t q_base, uint32_t kb) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < T::DP / 16; ++kk) {
+    const uint32_t box = kk * 16 / T::BOXC, col = (kk * 16 % T::BOXC) * 2;
+    wgmma_ss_n128(sc, gmma_desc(q_base + box * BM * T::ROW + col, 16, 8 * T::ROW, T::LAYOUT),
+                  gmma_desc(kb + box * BN * T::ROW + col, 16, 8 * T::ROW, T::LAYOUT), kk > 0);
+  }
+}
+
+// O += P V for a 128-key tile, P from registers, issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[Tile<D>::DP / 2], const uint32_t (&pa)[BN / 16][4],
+                                         uint32_t vb) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    mma_rs<T::DP>(o, pa[kk], gmma_desc(vb + kk * 16 * T::ROW, BN * T::ROW, 8 * T::ROW, T::LAYOUT));
+}
+
+// The online softmax of one score tile on its accumulator fragments (rows
+// g: elements 0, 1; g + 8: elements 2, 3): masks it where the diagonal or
+// the end of Skv crosses it, makes P as bf16 A fragments, and rescales O.
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], float (&o)[Tile<D>::DP / 2],
+                                             uint32_t (&pa)[BN / 16][4], float& m0, float& m1,
+                                             float& l0, float& l1, int k0, int Skv, int causal,
+                                             int64_t qp0, int64_t qp1, int64_t wg_first,
+                                             int tq, float c) {
+  constexpr int SN = BN / 2, ON = Tile<D>::DP / 2;
+  if (k0 + BN > Skv || (causal && (int64_t)k0 + BN - 1 > wg_first)) {
+#pragma unroll
+    for (int j = 0; j < SN / 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * tq + (e & 1);
+        if (col >= Skv) sc[4 * j + e] = -CUDART_INF_F;
+        else if (causal && (e < 2 ? qp0 : qp1) < col) sc[4 * j + e] = NEG_INF;
+      }
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < SN / 4; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+  }
+  const float al0 = exp2_approx((m0 - mx0) * c);   // 0 on the first tile (m = -inf)
+  const float al1 = exp2_approx((m1 - mx1) * c);
+  const float nb0 = -mx0 * c, nb1 = -mx1 * c;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < SN / 4; ++j) {
+    const float p0 = exp2_approx(fmaf(sc[4 * j], c, nb0));
+    const float p1 = exp2_approx(fmaf(sc[4 * j + 1], c, nb0));
+    const float p2 = exp2_approx(fmaf(sc[4 * j + 2], c, nb1));
+    const float p3 = exp2_approx(fmaf(sc[4 * j + 3], c, nb1));
+    rs0 += p0 + p1;
+    rs1 += p2 + p3;
+    pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);      // row g:     a0 / a2
+    pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);  // row g + 8: a1 / a3
+  }
+  l0 = l0 * al0 + rs0;   // this thread's share; the row's four lanes are summed at the end
+  l1 = l1 * al1 + rs1;
+  m0 = mx0;
+  m1 = mx1;
+#pragma unroll
+  for (int n = 0; n < ON / 4; ++n) {
+    o[4 * n] *= al0;
+    o[4 * n + 1] *= al0;
+    o[4 * n + 2] *= al1;
+    o[4 * n + 3] *= al1;
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Sq,
-              int Skv, int H, int KVH, int causal, int64_t q_offset, float scale) {
-  constexpr int KP = D + 8;          // padded row pitch (elements) of the kv tiles
-  constexpr int QK_STEPS = D / 16;   // k-steps of q.k
-  constexpr int S_TILES = MMA_BK / 8;
-  constexpr int PV_STEPS = MMA_BK / 16;
-  constexpr int O_TILES = D / 8;
-  constexpr int CHUNKS = D / 8;      // 16-byte chunks per kv row
-  __shared__ __align__(16) uint16_t ks[MMA_BK * KP];
-  __shared__ __align__(16) uint16_t vs[MMA_BK * KP];
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+                int Sq, int Skv, int H, int KVH, int causal, int64_t q_offset, float scale_log2) {
+  using T = Tile<D>;
+  constexpr int SN = BN / 2;        // score accumulators a thread
+  constexpr int ON = T::DP / 2;     // output accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ks = qs + T::Q_BYTES;                       // [STAGES][NBOX][BN][ROW]
+  uint8_t* vs = ks + T::STAGES * T::KV_BYTES;          // [STAGES][NBOX][BN][ROW]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + T::STAGES * T::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + T::STAGES;
+  uint64_t* kv_empty = v_full + T::STAGES;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-
-  const int64_t q_pitch = (int64_t)H * D;
-  const int64_t kv_pitch = (int64_t)KVH * D;
-  const uint16_t* qb = reinterpret_cast<const uint16_t*>(q) + (int64_t)b * Sq * q_pitch +
-                       (int64_t)h * D;
-  uint16_t* ob = reinterpret_cast<uint16_t*>(o) + (int64_t)b * Sq * q_pitch + (int64_t)h * D;
-  const uint16_t* kb = reinterpret_cast<const uint16_t*>(k) + (int64_t)b * Skv * kv_pitch +
-                       (int64_t)kvh * D;
-  const uint16_t* vb = reinterpret_cast<const uint16_t*>(v) + (int64_t)b * Skv * kv_pitch +
-                       (int64_t)kvh * D;
-
-  // this thread's two query rows, and their q fragments
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[QK_STEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < QK_STEPS; ++kk) {
-    const int c = 16 * kk + 2 * t;
-    qa[kk][0] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_pitch + c) : 0u;
-    qa[kk][1] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_pitch + c) : 0u;
-    qa[kk][2] = r0 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r0 * q_pitch + c + 8) : 0u;
-    qa[kk][3] = r1 < Sq ? *reinterpret_cast<const uint32_t*>(qb + r1 * q_pitch + c + 8) : 0u;
-  }
-
-  float oacc[O_TILES][4];
-#pragma unroll
-  for (int n = 0; n < O_TILES; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
-  const int64_t qp0 = q_offset + r0, qp1 = q_offset + r1;
-
+  // causal: no row of this tile sees a key past q_offset + q0 + BM - 1
   int64_t kv_end = Skv;
-  if (causal && q_offset + q0 + MMA_BQ < kv_end) kv_end = q_offset + q0 + MMA_BQ;
-  const int n_tiles = (int)((kv_end + MMA_BK - 1) / MMA_BK);
+  if (causal && q_offset + q0 + BM < kv_end) kv_end = q_offset + q0 + BM;
+  const int n_tiles = (int)((kv_end + BN - 1) / BN);
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * MMA_BK;
-    __syncthreads();  // the previous tile's ks / vs are consumed
-    for (int e = tid; e < MMA_BK * CHUNKS; e += MMA_THREADS) {
-      const int r = e / CHUNKS, c = (e - r * CHUNKS) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < Skv) {
-        const int64_t off = (int64_t)(k0 + r) * kv_pitch + c;
-        kv = *reinterpret_cast<const uint4*>(kb + off);
-        vv = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(ks + r * KP + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * KP + c) = vv;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], CONSUMER_WARPS);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // s = q . k^T for this warp's 16 rows and the tile's 64 keys
-    float s[S_TILES][4];
+  if (warp == CONSUMER_WARPS) {
+    // producer: Q once, then K and V a tile at a time into the ring
+    if (lane == 0) {
+      prefetch_map(&qmap);
+      prefetch_map(&kmap);
+      prefetch_map(&vmap);
+      mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-    for (int j = 0; j < S_TILES; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int x = 0; x < T::NBOX; ++x)
+        tma_load(qs + x * BM * T::ROW, &qmap, q_full, x * T::BOXC, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % T::STAGES;
+        if (t >= T::STAGES) mbar_wait(&kv_empty[s], ((t / T::STAGES) - 1) & 1);
+        mbar_expect_tx(&k_full[s], T::KV_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < QK_STEPS; ++kk) {
+        for (int x = 0; x < T::NBOX; ++x)
+          tma_load(ks + s * T::KV_BYTES + x * BN * T::ROW, &kmap, &k_full[s], x * T::BOXC, kvh,
+                   t * BN, b);
+        mbar_expect_tx(&v_full[s], T::KV_BYTES);
 #pragma unroll
-      for (int j = 0; j < S_TILES; ++j) {
-        const uint16_t* kr = ks + (8 * j + g) * KP + 16 * kk + 2 * t;
-        mma_bf16(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // scale, mask, online softmax (rows r0: elements 0, 1; r1: elements 2, 3)
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < S_TILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        float sv = s[j][e] * scale;
-        if (col >= Skv) sv = -CUDART_INF_F;
-        else if (causal && (e < 2 ? qp0 : qp1) < col) sv = NEG_INF;
-        s[j][e] = sv;
-        if (e < 2) mx0 = fmaxf(mx0, sv);
-        else mx1 = fmaxf(mx1, sv);
+        for (int x = 0; x < T::NBOX; ++x)
+          tma_load(vs + s * T::KV_BYTES + x * BN * T::ROW, &vmap, &v_full[s], x * T::BOXC, kvh,
+                   t * BN, b);
       }
     }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);  // 0 on the first tile
-    float rs0 = 0.f, rs1 = 0.f;
-    uint32_t pa[PV_STEPS][4];
-#pragma unroll
-    for (int j = 0; j < S_TILES; ++j) {
-      const float p0 = expf(s[j][0] - mn0), p1 = expf(s[j][1] - mn0);
-      const float p2 = expf(s[j][2] - mn1), p3 = expf(s[j][3] - mn1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);      // row g:   a0 / a2
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);  // row g+8: a1 / a3
-    }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      rs0 += __shfl_xor_sync(0xffffffffu, rs0, o_);
-      rs1 += __shfl_xor_sync(0xffffffffu, rs1, o_);
-    }
-    l0 = l0 * al0 + rs0;
-    l1 = l1 * al1 + rs1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < O_TILES; ++n) {
-      oacc[n][0] *= al0;
-      oacc[n][1] *= al0;
-      oacc[n][2] *= al1;
-      oacc[n][3] *= al1;
-    }
-
-    // o += p . v
-#pragma unroll
-    for (int kk = 0; kk < PV_STEPS; ++kk) {
-      const uint16_t* v0 = vs + (16 * kk + 2 * t) * KP + g;
-#pragma unroll
-      for (int n = 0; n < O_TILES; ++n) {
-        const uint16_t* vn = v0 + 8 * n;
-        mma_bf16(oacc[n], pa[kk], pack_raw(vn[0], vn[KP]), pack_raw(vn[8 * KP], vn[9 * KP]));
-      }
-    }
+    return;
   }
 
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. q0 + 64 wg + 63
+  const int wg = warp >> 2, lw = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  const int64_t qp0 = q_offset + q0 + wg * 64 + lw * 16 + g, qp1 = qp0 + 8;
+  const int64_t wg_first = q_offset + q0 + wg * 64;   // the warpgroup's first position
+  const uint32_t q_base = smem_addr(qs) + wg * 64 * T::ROW;
+  const uint32_t k_base = smem_addr(ks), v_base = smem_addr(vs);
+
+  float o[ON], sc[SN];
 #pragma unroll
-  for (int n = 0; n < O_TILES; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (r0 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_pitch + c) =
-          pack_bf16(oacc[n][0] / l0, oacc[n][1] / l0);
-    if (r1 < Sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_pitch + c) =
-          pack_bf16(oacc[n][2] / l1, oacc[n][3] / l1);
+  for (int i = 0; i < ON; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SN; ++i) sc[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  uint32_t pa[BN / 16][4];
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % T::STAGES;
+    const uint32_t parity = (t / T::STAGES) & 1;
+    mbar_wait(&k_full[s], parity);
+    fence_regs(sc);
+    wgmma_fence();
+    issue_s<D>(sc, q_base, k_base + s * T::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    softmax_tile<D>(sc, o, pa, m0, m1, l0, l1, t * BN, Skv, causal, qp0, qp1, wg_first, tq,
+                    scale_log2);
+    mbar_wait(&v_full[s], parity);
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv<D>(o, pa, v_base + s * T::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty[s]);   // this warp is done with the stage
+  }
+
+  // epilogue: O / l in bf16 into this warpgroup's Q rows (no longer read),
+  // swizzled as the boxes, then one TMA store a box
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const uint32_t r0 = wg * 64 + lw * 16 + g;
+#pragma unroll
+  for (int n = 0; n < ON / 4; ++n) {
+    const uint32_t col = 8 * n + 2 * tq;
+    const uint32_t off = (col / T::BOXC) * BM * T::ROW + r0 * T::ROW + (col % T::BOXC) * 2;
+    const uint32_t off8 = off + 8 * T::ROW;
+    *reinterpret_cast<uint32_t*>(qs + (off ^ (((off >> 7) & T::SWZ) << 4))) =
+        pack_bf16(o[4 * n] / l0, o[4 * n + 1] / l0);
+    *reinterpret_cast<uint32_t*>(qs + (off8 ^ (((off8 >> 7) & T::SWZ) << 4))) =
+        pack_bf16(o[4 * n + 2] / l1, o[4 * n + 3] / l1);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (lw == 0 && lane == 0 && q0 + wg * 64 < Sq) {
+#pragma unroll
+    for (int x = 0; x < T::NBOX; ++x)
+      tma_store(&omap, qs + x * BM * T::ROW + wg * 64 * T::ROW, x * T::BOXC, h, q0 + wg * 64, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -411,19 +650,70 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 bool valid(int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KVH, int64_t D,
            int64_t q_offset) {
   return B >= 1 && Sq >= 1 && Skv >= 1 && H >= 1 && KVH >= 1 && H % KVH == 0 && D >= 1 &&
-         D <= D_MAX && q_offset >= 0 && B * H <= 65535 && Sq <= 0x7fffffffLL - MMA_BQ &&
-         Skv <= 0x7fffffffLL - MMA_BK;
+         D <= D_MAX && q_offset >= 0 && B * H <= 65535 && Sq <= 0x7fffffffLL - BM &&
+         Skv <= 0x7fffffffLL - BN;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-D bf16 map over (D, heads, rows, B), boxes of box_cols x 1 x box_rows x 1
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int64_t d, int64_t heads,
+                int64_t rows, int64_t batch, uint32_t box_cols, uint32_t box_rows,
+                CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)rows,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)(d * 2), (cuuint64_t)(heads * d * 2),
+                                 (cuuint64_t)(rows * heads * d * 2)};
+  const cuuint32_t box[4] = {box_cols, 1, box_rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
-               int64_t Skv, int64_t H, int64_t KVH, int causal, int64_t q_offset, float scale,
-               cudaStream_t stream) {
-  const dim3 grid((unsigned)((Sq + MMA_BQ - 1) / MMA_BQ), (unsigned)(B * H));
-  flash_fwd_mma<D><<<grid, MMA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), (int)Sq, (int)Skv,
-      (int)H, (int)KVH, causal, q_offset, scale);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int64_t B, int64_t Sq,
+                 int64_t Skv, int64_t H, int64_t KVH, int causal, int64_t q_offset, float scale,
+                 cudaStream_t stream) {
+  using T = Tile<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const CUtensorMapSwizzle sw = T::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap qm, km, vm, om;
+  if (!(tensor_map(encode, &qm, q, D, H, Sq, B, T::BOXC, BM, sw) &&
+        tensor_map(encode, &km, k, D, KVH, Skv, B, T::BOXC, BN, sw) &&
+        tensor_map(encode, &vm, v, D, KVH, Skv, B, T::BOXC, BN, sw) &&
+        tensor_map(encode, &om, o, D, H, Sq, B, T::BOXC, BM / 2, sw)))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((Sq + BM - 1) / BM), (unsigned)(B * H));
+  flash_fwd_wgmma<D><<<grid, WG_THREADS, T::SMEM, stream>>>(
+      qm, km, vm, om, (int)Sq, (int)Skv, (int)H, (int)KVH, causal, q_offset, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -454,10 +744,12 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, i
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch_mma<32>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
-    case 64: return launch_mma<64>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
-    case 112: return launch_mma<112>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
-    case 128: return launch_mma<128>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
+    case 32: return launch_wgmma<32>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
+    case 64: return launch_wgmma<64>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
+    case 112:
+      return launch_wgmma<112>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, B, Sq, Skv, H, KVH, causal, q_offset, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

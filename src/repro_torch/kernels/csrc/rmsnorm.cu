@@ -11,12 +11,20 @@
 // multiplies before it rounds, so it is not the same function in bf16.
 //
 // Bound by bytes: the least traffic is one read of x and one write of y (the
-// scale row stays in L1/L2). One warp owns one row and holds it whole, as
-// float, in shared memory between the two passes (sum of squares, then the
-// scaled write), so x is read from device memory once. Rows of d <= 12,288
-// fit (48 KB of dynamic shared memory per block without opt-in); a block
-// holds as many warps (1..8) as fit in that budget. Loads and stores are
-// 16 bytes a lane where d and the pointers allow it, else scalar.
+// scale row stays in L1/L2). The row lives in registers: a group of LANES
+// threads owns a row (a whole warp for d >= 32 vectors, 4 to 16 lanes for
+// narrower rows such as the qk-norm's 128), each lane issues all of its
+// VPL 16-byte loads before it sums, the group reduces with shuffles and
+// writes from the same registers. No shared memory, so residency is set by
+// registers alone and every resident row has all of its loads in flight.
+// Rows wider than 512 vectors (bf16 d > 4,096, float32 d > 2,048) take a
+// warp each and read x a second time, from L2, in the same kernel; so do
+// rows whose width is not a multiple of 16 bytes or whose pointers are not
+// 16-byte aligned, with scalar accesses. Rows up to 12,288 are taken.
+// On an H100 the serving path's (8192, 1024) bf16 call takes about 0.0105
+// device ms against a 0.0100 ms bound (95 %) and
+// torch.nn.functional.rms_norm's 0.012; chip_smoke.py measures it and
+// PERF.md keeps the numbers.
 //
 // Plain C interface (bound with ctypes): rmsnorm_f32 / rmsnorm_bf16 return
 // the cudaError_t of the launch. Nothing is allocated and nothing
@@ -29,9 +37,8 @@
 
 namespace {
 
-constexpr int MAX_WARPS = 8;
-constexpr int64_t SMEM_BUDGET = 48 * 1024;
-constexpr int64_t MAX_D = SMEM_BUDGET / sizeof(float);
+constexpr int BLOCK = 256;
+constexpr int64_t MAX_D = 12288;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -42,9 +49,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// sum over the LANES lanes of an aligned group
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -54,82 +63,137 @@ __device__ __forceinline__ T normed(float xv, float inv, T s) {
   return from_f<T>(to_f(from_f<T>(xv * inv)) * to_f(s));
 }
 
-// VEC: 16-byte accesses (d % (16 / sizeof(T)) == 0 and aligned pointers).
-template <typename T, bool VEC>
-__global__ void rmsnorm_rows(const T* __restrict__ x, const T* __restrict__ scale,
-                             T* __restrict__ out, int64_t rows, int d, float eps) {
-  extern __shared__ float buf[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= rows) return;
-  float* r = buf + (int64_t)warp * d;
+// blocks an SM must hold: rows of 8 vectors a lane (bf16 d = 2,048) fit 4
+// blocks of 256 threads in 64 registers, where the compiler would take 74
+// and leave 3; the other widths need no cap
+template <int VPL>
+struct Residency {
+  static constexpr int blocks = VPL == 8 ? 4 : 1;
+};
+
+// The row in registers: LANES lanes a row, VPL 16-byte vectors a lane
+// (vector j * LANES + lane of the row), d a multiple of 16 / sizeof(T).
+template <typename T, int LANES, int VPL>
+__global__ void __launch_bounds__(BLOCK, Residency<VPL>::blocks)
+rmsnorm_regs(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ out,
+             int64_t rows, int d, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  const int64_t row = ((int64_t)blockIdx.x * BLOCK + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  const bool live = row < rows;   // dead lanes still take part in the shuffles
   const T* xr = x + row * d;
   T* yr = out + row * d;
-  constexpr int V = 16 / sizeof(T);
 
+  uint4 xv[VPL];
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int i = (j * LANES + lane) * V;
+    xv[j] = live && i < d ? *reinterpret_cast<const uint4*>(xr + i) : make_uint4(0u, 0u, 0u, 0u);
+  }
   float ss = 0.f;
-  if (VEC) {
-    for (int i = lane * V; i < d; i += 32 * V) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
-      const T* e = reinterpret_cast<const T*>(&raw);
-      float f[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        f[j] = to_f(e[j]);
-        ss += f[j] * f[j];
-      }
+  for (int j = 0; j < VPL; ++j) {
+    const T* e = reinterpret_cast<const T*>(&xv[j]);
 #pragma unroll
-      for (int j = 0; j < V; j += 4)
-        *reinterpret_cast<float4*>(r + i + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
-    }
-  } else {
-    for (int i = lane; i < d; i += 32) {
-      const float f = to_f(xr[i]);
-      r[i] = f;
+    for (int k = 0; k < V; ++k) {
+      const float f = to_f(e[k]);
       ss += f * f;
     }
   }
-  ss = warp_sum(ss);
-  const float inv = rsqrtf(ss / (float)d + eps);
-  __syncwarp();
-
-  if (VEC) {
-    for (int i = lane * V; i < d; i += 32 * V) {
+  const float inv = rsqrtf(group_sum<LANES>(ss) / (float)d + eps);
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int i = (j * LANES + lane) * V;
+    if (live && i < d) {
       const uint4 sraw = *reinterpret_cast<const uint4*>(scale + i);
+      const T* s = reinterpret_cast<const T*>(&sraw);
+      const T* e = reinterpret_cast<const T*>(&xv[j]);
+      uint4 oraw;
+      T* o = reinterpret_cast<T*>(&oraw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) o[k] = normed<T>(to_f(e[k]), inv, s[k]);
+      *reinterpret_cast<uint4*>(yr + i) = oraw;
+    }
+  }
+}
+
+// A warp a row, x read twice (the second read from L2): rows wider than the
+// register path holds (VEC, 16-byte accesses) or not 16-byte shaped (scalar).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(BLOCK)
+rmsnorm_reread(const T* __restrict__ x, const T* __restrict__ scale, T* __restrict__ out,
+               int64_t rows, int d, float eps) {
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  const int64_t row = (int64_t)blockIdx.x * (BLOCK / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;   // the whole warp: one row
+  const T* xr = x + row * d;
+  T* yr = out + row * d;
+
+  float ss = 0.f;
+  for (int i = lane * V; i < d; i += 32 * V) {
+    if (VEC) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) ss += to_f(e[k]) * to_f(e[k]);
+    } else {
+      const float f = to_f(xr[i]);
+      ss += f * f;
+    }
+  }
+  const float inv = rsqrtf(group_sum<32>(ss) / (float)d + eps);
+  for (int i = lane * V; i < d; i += 32 * V) {
+    if (VEC) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(xr + i);
+      const uint4 sraw = *reinterpret_cast<const uint4*>(scale + i);
+      const T* e = reinterpret_cast<const T*>(&raw);
       const T* s = reinterpret_cast<const T*>(&sraw);
       uint4 oraw;
       T* o = reinterpret_cast<T*>(&oraw);
 #pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = normed<T>(r[i + j], inv, s[j]);
+      for (int k = 0; k < V; ++k) o[k] = normed<T>(to_f(e[k]), inv, s[k]);
       *reinterpret_cast<uint4*>(yr + i) = oraw;
+    } else {
+      yr[i] = normed<T>(to_f(xr[i]), inv, scale[i]);
     }
-  } else {
-    for (int i = lane; i < d; i += 32) yr[i] = normed<T>(r[i], inv, scale[i]);
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+template <typename T, int LANES, int VPL>
+void launch_regs(const T* x, const T* s, T* y, int64_t rows, int d, float eps, cudaStream_t st) {
+  constexpr int64_t per_block = BLOCK / LANES;
+  rmsnorm_regs<T, LANES, VPL><<<(unsigned)((rows + per_block - 1) / per_block), BLOCK, 0, st>>>(
+      x, s, y, rows, d, eps);
+}
+
 template <typename T>
-int launch(const void* x, const void* scale, void* out, int64_t rows, int64_t d,
-           float eps, cudaStream_t stream) {
-  if (rows < 1 || d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
-  int64_t warps = SMEM_BUDGET / (d * (int64_t)sizeof(float));
-  warps = warps < 1 ? 1 : (warps > MAX_WARPS ? MAX_WARPS : warps);
-  const int64_t blocks = (rows + warps - 1) / warps;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(warps * d * sizeof(float));
-  const bool vec = d % (16 / (int64_t)sizeof(T)) == 0 && aligned16(x) && aligned16(scale) &&
-                   aligned16(out);
+int launch(const void* x, const void* scale, void* out, int64_t rows, int64_t d, float eps,
+           cudaStream_t st) {
+  constexpr int64_t V = 16 / sizeof(T);
+  if (rows < 1 || d < 1 || d > MAX_D || (rows + BLOCK / 32 - 1) / (BLOCK / 32) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
-  const T* st = static_cast<const T*>(scale);
-  T* ot = static_cast<T*>(out);
-  if (vec)
-    rmsnorm_rows<T, true><<<(unsigned)blocks, (unsigned)(warps * 32), smem, stream>>>(
-        xt, st, ot, rows, (int)d, eps);
-  else
-    rmsnorm_rows<T, false><<<(unsigned)blocks, (unsigned)(warps * 32), smem, stream>>>(
-        xt, st, ot, rows, (int)d, eps);
+  const T* s = static_cast<const T*>(scale);
+  T* y = static_cast<T*>(out);
+  const int di = (int)d;
+  const int64_t warp_blocks = (rows + BLOCK / 32 - 1) / (BLOCK / 32);
+  if (d % V != 0 || !(aligned16(x) && aligned16(scale) && aligned16(out))) {
+    rmsnorm_reread<T, false><<<(unsigned)warp_blocks, BLOCK, 0, st>>>(xt, s, y, rows, di, eps);
+    return (int)cudaGetLastError();
+  }
+  const int64_t n = d / V;   // 16-byte vectors a row
+  if (n <= 4) launch_regs<T, 4, 1>(xt, s, y, rows, di, eps, st);
+  else if (n <= 8) launch_regs<T, 8, 1>(xt, s, y, rows, di, eps, st);
+  else if (n <= 16) launch_regs<T, 16, 1>(xt, s, y, rows, di, eps, st);
+  else if (n <= 32) launch_regs<T, 32, 1>(xt, s, y, rows, di, eps, st);
+  else if (n <= 64) launch_regs<T, 32, 2>(xt, s, y, rows, di, eps, st);
+  else if (n <= 128) launch_regs<T, 32, 4>(xt, s, y, rows, di, eps, st);
+  else if (n <= 256) launch_regs<T, 32, 8>(xt, s, y, rows, di, eps, st);
+  else if (n <= 512) launch_regs<T, 32, 16>(xt, s, y, rows, di, eps, st);
+  else rmsnorm_reread<T, true><<<(unsigned)warp_blocks, BLOCK, 0, st>>>(xt, s, y, rows, di, eps);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,13 @@ dtype; causal (with the absolute position ``q_offset`` of ``q[0]``) or full;
 GQA / MQA read in place (``H % KVH == 0``); scale ``D**-0.5``; float32
 statistics and accumulation. Unlike the reference, which asserts that the
 sequence lengths divide its blocks, any ``Sq`` and ``Skv`` are taken: the
-kernel masks the ragged tiles. float32 takes head dims up to 128; bfloat16
-runs on the tensor cores and takes the head dims of the configs (32, 64,
-112, 128) with 16-byte aligned operands, and raises on any other.
+kernel masks the ragged tiles. float32 takes head dims up to 128 (CUDA
+cores). bfloat16 runs the Hopper kernel: TMA loads of Q and of K / V tiles
+into an mbarrier ring fed by a producer warp, both products on ``wgmma``
+for two consumer warpgroups of 64 query rows each, P kept in registers
+(see the note at the top of the ``.cu``). It takes the head dims of the
+configs (32, 64, 112, 128) with 16-byte aligned operands, which its tensor
+maps need; :func:`_launch_args` raises on any other before the launch.
 
 :func:`flash_attention` takes the plain version only for tensors that lie
 on the CPU. For CUDA tensors it launches the kernel or raises.
@@ -64,25 +68,56 @@ def _check(q, k, v, q_offset) -> None:
         raise ValueError("flash_attention takes contiguous tensors")
 
 
-_lib: Optional[ctypes.CDLL] = None
+#: head dims the bfloat16 kernel has an instance for, and the float32
+#: kernel's largest (``flash_attention_max_head_dim`` of the library)
+BF16_HEAD_DIMS = (32, 64, 112, 128)
+MAX_HEAD_DIM = 128
+
+_fns: Optional[dict] = None
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    global _lib
-    if _lib is None:
+def _library() -> dict:
+    """The built kernel library's launchers by dtype, C signatures declared
+    (bound once, so a call pays no attribute lookups)."""
+    global _fns
+    if _fns is None:
         lib = _build.load("flash_attention")
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in _FN.values():
-            fn = getattr(lib, name)
+        fns = {}
+        for dtype, name in _FN.items():
+            fn = fns[dtype] = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64,
                            ctypes.c_int, i64, ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         lib.flash_attention_max_head_dim.argtypes = []
         lib.flash_attention_max_head_dim.restype = i64
-        lib.max_head_dim = int(lib.flash_attention_max_head_dim())
-        _lib = lib
-    return _lib
+        if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
+            raise RuntimeError("flash_attention: the built library's largest head "
+                               "dim differs from the wrapper's")
+        _fns = fns
+    return _fns
+
+
+def _launch_args(q, k, v, out, causal: bool, q_offset: int) -> tuple:
+    """The C launcher's arguments (without the stream), after the checks
+    that only the card's kernels need: the float32 kernel's largest head
+    dim, and the bfloat16 kernel's head dims and 16-byte alignment (its
+    tensor maps need both)."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention's kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if q.dtype == torch.bfloat16:
+        if d not in BF16_HEAD_DIMS:
+            raise RuntimeError(f"flash_attention: bfloat16 takes head dims 32, 64, "
+                               f"112, 128 and 16-byte aligned operands, got head dim {d}")
+        if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+            raise RuntimeError("flash_attention: bfloat16 takes head dims 32, 64, "
+                               "112, 128 and 16-byte aligned operands, got an "
+                               "operand that is not 16-byte aligned")
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
+            h, kvh, d, int(causal), q_offset, d ** -0.5)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -98,22 +133,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for device {q.device}")
-    lib = _library()
-    b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    if d > lib.max_head_dim:
-        raise ValueError(f"flash_attention's kernel takes head dims up to "
-                         f"{lib.max_head_dim}, got {d}")
-    with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-            h, kvh, d, int(causal), q_offset, d ** -0.5, stream)
+    fn = _library()[q.dtype]
+    out = torch.empty_like(q)
+    err = _build.launch_on(q.device, fn, *_launch_args(q, k, v, out, causal, q_offset))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
                            f"{err} for q {tuple(q.shape)}, k {tuple(k.shape)} "
-                           f"{q.dtype} (bfloat16 takes head dims 32, 64, 112, "
-                           f"128 and 16-byte aligned operands)")
+                           f"{q.dtype}")
     launch_count += 1
     return out

@@ -116,14 +116,12 @@ def lindley_scan(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     lib = _library()
     rows, n = u.shape
     tiles = -(-n // int(lib.lindley_scan_tile()))
-    with torch.cuda.device(u.device):
-        w = torch.empty_like(u)
-        agg_u = torch.empty((rows, tiles), dtype=u.dtype, device=u.device)
-        agg_v = torch.empty_like(agg_u)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[u.dtype])(
-            u.data_ptr(), v.data_ptr(), w.data_ptr(), agg_u.data_ptr(),
-            agg_v.data_ptr(), rows, n, stream)
+    w = torch.empty_like(u)
+    agg_u = torch.empty((rows, tiles), dtype=u.dtype, device=u.device)
+    agg_v = torch.empty_like(agg_u)
+    err = _build.launch_on(u.device, getattr(lib, _FN[u.dtype]), u.data_ptr(),
+                           v.data_ptr(), w.data_ptr(), agg_u.data_ptr(),
+                           agg_v.data_ptr(), rows, n)
     if err != 0:
         raise RuntimeError(f"lindley_scan kernel launch failed: CUDA error "
                            f"{err} for shape {tuple(u.shape)} {u.dtype}")

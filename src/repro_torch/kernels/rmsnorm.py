@@ -7,8 +7,10 @@ first use by ``_build.load``.
 ``y = (x * rsqrt(mean(x²) + eps)).astype(x.dtype) * scale`` over the last
 axis, statistics in float32, the cast *before* the multiply by ``scale``
 (the reference's order). Bound by bytes: one read of ``x``, one write of
-``y``. One warp per row, the row held whole in shared memory between the
-two passes; see the note at the top of the ``.cu``.
+``y``. A row is held in registers by a warp (4 to 16 lanes for rows of
+fewer than 32 16-byte vectors, such as the qk-norm's 128), all of its loads
+in flight at once; rows wider than 512 vectors, or not 16-byte shaped, are
+read a second time from L2 instead. See the note at the top of the ``.cu``.
 
 :func:`rmsnorm` takes the plain version only for tensors that lie on the
 CPU. For CUDA tensors it launches the kernel or raises.
@@ -50,24 +52,41 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError("rmsnorm takes contiguous tensors")
 
 
-_lib: Optional[ctypes.CDLL] = None
+#: the widest row the kernel takes (``rmsnorm_max_d`` of the library)
+MAX_D = 12288
+
+_fns: Optional[dict] = None
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    global _lib
-    if _lib is None:
+def _library() -> dict:
+    """The built kernel library's launchers by dtype, C signatures declared
+    (bound once, so a call pays no attribute lookups)."""
+    global _fns
+    if _fns is None:
         lib = _build.load("rmsnorm")
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name in _FN.values():
-            fn = getattr(lib, name)
+        fns = {}
+        for dtype, name in _FN.items():
+            fn = fns[dtype] = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, i64, i64, ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
         lib.rmsnorm_max_d.argtypes = []
         lib.rmsnorm_max_d.restype = i64
-        lib.max_d = int(lib.rmsnorm_max_d())
-        _lib = lib
-    return _lib
+        if lib.rmsnorm_max_d() != MAX_D:
+            raise RuntimeError("rmsnorm: the built library's widest row differs "
+                               "from the wrapper's")
+        _fns = fns
+    return _fns
+
+
+def _launch_args(x, scale, out, eps: float) -> tuple:
+    """The C launcher's arguments (without the stream); raises on rows
+    wider than the kernel takes."""
+    d = x.shape[-1]
+    if d > MAX_D:
+        raise ValueError(f"rmsnorm's kernel takes rows of at most {MAX_D} "
+                         f"elements, got d = {d}")
+    return (x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d, eps)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -81,17 +100,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm has no kernel for device {x.device}")
-    lib = _library()
-    d = x.shape[-1]
-    if d > lib.max_d:
-        raise ValueError(f"rmsnorm's kernel holds rows of at most "
-                         f"{lib.max_d} elements, got d = {d}")
-    with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[x.dtype])(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d,
-            eps, stream)
+    fn = _library()[x.dtype]
+    out = torch.empty_like(x)
+    err = _build.launch_on(x.device, fn, *_launch_args(x, scale, out, eps))
     if err != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err} "
                            f"for shape {tuple(x.shape)} {x.dtype}")

@@ -115,14 +115,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     if p > lib.max_p or n > lib.max_n or n % 4:
         raise ValueError(f"ssd_scan's kernel takes p <= {lib.max_p} and n <= "
                          f"{lib.max_n} with n % 4 == 0, got p = {p}, n = {n}")
-    with torch.cuda.device(x.device):
-        y = torch.empty_like(x)
-        final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _FN[x.dtype])(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), None if initial_state is None else initial_state.data_ptr(),
-            y.data_ptr(), final.data_ptr(), b, s, h, p, g, n, chunk, stream)
+    y = torch.empty_like(x)
+    final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    err = _build.launch_on(
+        x.device, getattr(lib, _FN[x.dtype]), x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+        None if initial_state is None else initial_state.data_ptr(),
+        y.data_ptr(), final.data_ptr(), b, s, h, p, g, n, chunk)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err} for x "
                            f"{tuple(x.shape)}, B {tuple(B.shape)} {x.dtype}, "

@@ -93,6 +93,8 @@ def _qkv(seed, b, sq, h, kvh, d, skv, dtype, device):
             for shape in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
 
 
+#: the bf16 kernel's tiles are 128 queries (two warpgroups of 64) by 128
+#: keys; the cases after the first eight cross those edges
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,q_offset", [
     (2, 256, 256, 16, 8, 128, True, 0),     # qwen3's heads
@@ -103,6 +105,16 @@ def _qkv(seed, b, sq, h, kvh, d, skv, dtype, device):
     (1, 200, 200, 2, 2, 112, True, 0),      # zamba2's head dim
     (3, 1, 77, 4, 2, 128, True, 76),        # one query at the end
     (2, 300, 300, 8, 2, 32, True, 0),       # ragged, head dim 32
+    (1, 129, 129, 4, 2, 128, True, 0),      # one row past a query tile
+    (1, 127, 127, 4, 2, 128, True, 0),      # one row short of it
+    (2, 100, 60, 4, 2, 64, False, 0),       # Skv < 128, full
+    (1, 50, 20, 2, 1, 128, True, 0),        # Skv < Sq < 128, causal
+    (1, 64, 300, 4, 2, 128, True, 236),     # q_offset off the key tile
+    (1, 77, 200, 4, 4, 64, True, 100),      # ... and off the query tile
+    (3, 1, 77, 64, 8, 128, True, 76),       # B * H = 192 blocks of one row
+    (2, 256, 256, 8, 1, 128, True, 0),      # MQA at head dim 128
+    (1, 300, 300, 4, 2, 112, False, 0),     # head dim 112, full, ragged
+    (2, 200, 333, 4, 2, 32, False, 0),      # head dim 32, full, ragged
 ], ids=str)
 def test_flash_attention_matches_plain_version(card, dtype, b, sq, skv, h, kvh, d,
                                                causal, q_offset):
@@ -120,8 +132,12 @@ def test_flash_attention_matches_plain_version(card, dtype, b, sq, skv, h, kvh, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+#: d = 128 and 64 hold a row in 16 and 8 lanes, 24 (bf16) in 4; d = 100
+#: and 2050 are not 16-byte multiples (scalar); 6144 and 12288 (bf16) are
+#: read twice; (1, d) is one row
 @pytest.mark.parametrize("rows,d", [(8192, 1024), (4096, 128), (7, 3584), (5, 6144),
-                                    (3, 100), (1, 12288)], ids=str)
+                                    (3, 100), (1, 12288), (1, 128), (33, 64), (5, 24),
+                                    (4, 2050), (6, 4096), (9, 2048)], ids=str)
 def test_rmsnorm_matches_plain_version(card, dtype, rows, d):
     from repro_torch.kernels import rmsnorm as rn
     rng = np.random.default_rng(rows + d)
@@ -134,6 +150,24 @@ def test_rmsnorm_matches_plain_version(card, dtype, rows, d):
     want = rn.rmsnorm_plain(x, scale)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_rmsnorm_takes_unaligned_operands(card):
+    """A contiguous view one element into its storage goes through the
+    scalar path: the same values as the plain version."""
+    from repro_torch.kernels import rmsnorm as rn
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((6, 1024)).astype(np.float32)).to(card, dtype)
+        scale = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(card, dtype)
+        xs = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:].view(x.shape)
+        xs.copy_(x)
+        assert xs.data_ptr() % 16 != 0 and xs.is_contiguous()
+        got = rn.rmsnorm(xs, scale)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), rn.rmsnorm_plain(x, scale).float(),
+                                   rtol=tol, atol=tol)
 
 
 def test_flash_attention_takes_unaligned_operands(card):

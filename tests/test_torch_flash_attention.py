@@ -10,6 +10,8 @@ interpret mode, on the shapes, dtypes and ``q_offset`` cases of
 2e-5, bfloat16 2e-2); then the chunked path, ``decode_attention`` and the
 ragged lengths the card's kernel takes and the reference's kernel does not.
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,9 +19,11 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models.convert import to_tensor
+from torch_port_util import FakeLibrary
 
 torch.set_num_threads(1)
 
@@ -159,3 +163,81 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     with pytest.raises(ValueError):
         ops.attention(q, k, v, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's launch path, up to the C call (the call itself needs a card)
+# ---------------------------------------------------------------------------
+def _unaligned(t):
+    """A contiguous copy of ``t`` that starts one element into its storage."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("d", fa.BF16_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_launch_args_take_the_configs_head_dims(d, dtype):
+    q, k, v = _port(*_qkv(29, 2, 33, 4, 2, d, skv=70), dtype=dtype)
+    out = torch.empty_like(q)
+    args = fa._launch_args(q, k, v, out, True, 5)
+    assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    2, 33, 70, 4, 2, d, 1, 5, d ** -0.5)
+    assert fa._launch_args(q, k, v, out, False, 0)[10] == 0
+
+
+@pytest.mark.parametrize("d", [16, 40, 48, 96, 120])
+def test_launch_args_refuse_bf16_head_dims_without_an_instance(d):
+    """float32 takes any head dim up to 128; the bf16 kernel has tiles for
+    the configs' 32, 64, 112 (on the 128-wide tiles) and 128 only."""
+    q, k, v = _port(*_qkv(31, 1, 8, 2, 2, d))
+    fa._launch_args(q, k, v, q, True, 0)
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    with pytest.raises(RuntimeError, match="head dims 32, 64, 112, 128"):
+        fa._launch_args(qb, kb, vb, torch.empty_like(qb), True, 0)
+
+
+def test_launch_args_refuse_what_no_kernel_takes():
+    q, k, v = _port(*_qkv(37, 1, 8, 2, 2, 256))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head dims up to 128"):
+            fa._launch_args(q.to(dtype), k.to(dtype), v.to(dtype), q.to(dtype), True, 0)
+
+
+def test_launch_args_refuse_unaligned_bf16_operands():
+    """The bf16 kernel's tensor maps need 16-byte aligned bases: each of q,
+    k, v and the output is checked; float32 takes any alignment."""
+    q, k, v = _port(*_qkv(41, 1, 16, 2, 1, 64), dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    assert all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    for i in range(4):
+        operands = [q, k, v, out]
+        operands[i] = _unaligned(operands[i])
+        assert operands[i].data_ptr() % 16 and operands[i].is_contiguous()
+        with pytest.raises(RuntimeError, match="16-byte aligned"):
+            fa._launch_args(*operands, True, 0)
+    f32 = [_unaligned(t.float()) for t in (q, k, v, out)]
+    assert fa._launch_args(*f32, True, 0)[0] == f32[0].data_ptr()
+
+
+def test_library_binds_each_launcher_once(monkeypatch):
+    lib = FakeLibrary(flash_attention_max_head_dim=fa.MAX_HEAD_DIM)
+    loads = []
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(fa, "_fns", None)
+    table = fa._library()
+    assert fa._library() is table and loads == ["flash_attention"]
+    assert table == {torch.float32: lib.flash_attention_f32,
+                     torch.bfloat16: lib.flash_attention_bf16}
+    for fn in table.values():
+        assert len(fn.argtypes) == 14 and fn.restype is ctypes.c_int
+        assert fn.argtypes[10] is ctypes.c_int and fn.argtypes[12] is ctypes.c_float
+
+
+def test_library_of_another_head_dim_limit_is_refused(monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda name: FakeLibrary(
+        flash_attention_max_head_dim=fa.MAX_HEAD_DIM * 2))
+    monkeypatch.setattr(fa, "_fns", None)
+    with pytest.raises(RuntimeError, match="largest head dim"):
+        fa._library()
+    assert fa._fns is None

@@ -9,6 +9,8 @@ float32 at 2e-5 (the reference's own sweep, ``tests/test_kernels.py:160``);
 bfloat16 at 2e-2 (one bf16 rounding of the normalised row, which another
 float32 summation order can move by one unit).
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +18,12 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models.convert import to_tensor
+from torch_port_util import FakeLibrary
 
 torch.set_num_threads(1)
 
@@ -96,3 +100,43 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         rn.rmsnorm(torch.zeros((8, 4)).t(), torch.ones(8))
     with pytest.raises(ValueError):
         ops.rmsnorm(x, torch.ones(8), impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's launch path, up to the C call (the call itself needs a card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(1, 128), (17, 3, 128), (2, 5, 7, 100), (1, 12288)],
+                         ids=str)
+def test_launch_args_flatten_the_leading_axes(shape):
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    scale = torch.ones(shape[-1], dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    rows = int(np.prod(shape[:-1]))
+    assert rn._launch_args(x, scale, out, 1e-6) == (
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, shape[-1], 1e-6)
+
+
+def test_launch_args_refuse_rows_wider_than_the_kernel_takes():
+    x = torch.zeros((2, rn.MAX_D + 1))
+    with pytest.raises(ValueError, match=f"at most {rn.MAX_D}"):
+        rn._launch_args(x, torch.ones(rn.MAX_D + 1), torch.empty_like(x), 1e-5)
+
+
+def test_library_binds_each_launcher_once(monkeypatch):
+    lib = FakeLibrary(rmsnorm_max_d=rn.MAX_D)
+    loads = []
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or lib)
+    monkeypatch.setattr(rn, "_fns", None)
+    table = rn._library()
+    assert rn._library() is table and loads == ["rmsnorm"]
+    assert table == {torch.float32: lib.rmsnorm_f32, torch.bfloat16: lib.rmsnorm_bf16}
+    for fn in table.values():
+        assert len(fn.argtypes) == 7 and fn.restype is ctypes.c_int
+        assert fn.argtypes[5] is ctypes.c_float
+
+
+def test_library_of_another_row_limit_is_refused(monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda name: FakeLibrary(rmsnorm_max_d=48 * 1024))
+    monkeypatch.setattr(rn, "_fns", None)
+    with pytest.raises(RuntimeError, match="widest row"):
+        rn._library()

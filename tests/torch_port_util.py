@@ -146,3 +146,25 @@ def assert_results_close(res, base, tol, what):
         close(res.per_job_wait[jid], base.per_job_wait[jid],
               max(tol, tol * base.per_job_wait[jid]),
               f"{what} per_job_wait[{jid}]")
+
+
+class FakeLibrary:
+    """Stands in for a built kernel library (``ctypes.CDLL``) where there
+    is no ``nvcc``: every attribute is a callable that records the
+    ``argtypes`` / ``restype`` a wrapper declares on it and returns the
+    value given for its name (0 otherwise)."""
+
+    class Function:
+        def __init__(self, value):
+            self.value, self.argtypes, self.restype = value, None, None
+
+        def __call__(self, *args):
+            return self.value
+
+    def __init__(self, **values):
+        self._values = values
+
+    def __getattr__(self, name):
+        fn = self.Function(self._values.get(name, 0))
+        setattr(self, name, fn)
+        return fn
