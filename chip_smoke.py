@@ -5,7 +5,9 @@
 
 Builds every hand-written kernel from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card, then drives the port's paths at full size:
+version on the card (phase 3; K3 through both of its instances where both
+take the case, the bf16 ones timed in turns, wgmma / general / general /
+wgmma), then drives the port's paths at full size:
 
 * phase 4, the paper's path — the Table-4 workload at ``count_scale=1.0``
   (4.34 M messages) on the 16-node x 16-core cluster: mapping ->
@@ -19,9 +21,12 @@ version on the card, then drives the port's paths at full size:
   the plain-PyTorch twin in bfloat16, prefill/decode consistency against
   the twin's own, and the same weights in float32 against the twin;
 * phase 6, SSM serving — mamba2-370m at its published widths in bfloat16
-  (48 Mamba2 layers, the SSD scan through K3): the same prefills and engine,
-  counted the same way; then the kernel model against its plain twin, in
-  bfloat16 and with the same weights in float32: every layer on the twin's
+  (48 Mamba2 layers, the SSD scan through K3's wgmma instance, once a layer
+  in each prefill, never in decode): the same prefills and engine, counted
+  the same way, with K3's share of each prefill's device time; the float32
+  model runs K3's general instance and the plain twins no kernel; then the
+  kernel model against its plain twin, in bfloat16 and with the same
+  weights in float32: every layer on the twin's
   input (output, SSM state, conv window), the float32 prefill logits and
   prefill/decode consistency (which hands K3's final state to the decode
   recurrence), the bfloat16 logits and consistency at the first layer
@@ -41,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -537,30 +543,63 @@ def ssd_inputs(gen, b, s, h, p, g, n, valid, init, dtype, device):
     return x.to(dtype), dt, A, B.to(dtype), C.to(dtype), rnd(h), st
 
 
-def ssd_bound(b, s, h, p, g, n, chunk, dtype, init):
-    """Least time: x, dt, A, B, C, D (and an initial state) read once, y and
-    the final state written once, against the operations the function needs
-    on these inputs, each MAC counted as 2. Per (batch, group, chunk of L)
-    the lower triangle of C B^T (n MACs a pair), shared by the group's
-    heads, at the peak of the inputs' type (a bf16 product accumulated in
-    float32 may run on the tensor cores); per (batch, head, chunk) the lower
+def ssd_work(b, s, h, p, g, n, chunk, dtype, init):
+    """What K3's function must do on these inputs: x, dt, A, B, C, D (and an
+    initial state) read once, y and the final state written once; and the
+    operations, each MAC counted as 2. Per (batch, group, chunk of L) the
+    lower triangle of C B^T (n MACs a pair), shared by the group's heads;
+    per (batch, head, chunk) the products with a float32 operand: the lower
     triangle of M x (p MACs a pair), C . state and the state update (L n p
-    MACs each), and three operations a pair for the decay and dt weights of
-    M, in float32 at 67 TFLOP/s (M and the state are float32)."""
+    MACs each); and three elementwise operations a pair for the decay and
+    dt weights of M. Returns (C B^T FLOPs, float32-operand product FLOPs,
+    elementwise FLOPs, bytes)."""
     item = torch.empty((), dtype=dtype).element_size()
     states = b * h * p * n * 4 * (2 if init else 1)
     nbytes = 2 * b * s * h * p * item + 2 * b * s * g * n * item + b * s * h * 4 \
         + 2 * h * 4 + states
     pairs = chunk * (chunk + 1) // 2
+    heads = b * h * (s // chunk)
     cb_flops = b * g * (s // chunk) * 2 * n * pairs
-    f32_flops = b * h * (s // chunk) * (2 * p * pairs + 4 * chunk * n * p + 3 * pairs)
-    t_ops = (cb_flops / FLOPS_PER_S[dtype] + f32_flops / FLOPS_PER_S[torch.float32]) * 1e3
+    f32_flops = heads * (2 * p * pairs + 4 * chunk * n * p)
+    elem_flops = heads * 3 * pairs
+    return cb_flops, f32_flops, elem_flops, nbytes
+
+
+def ssd_bound(b, s, h, p, g, n, chunk, dtype, init):
+    """Least time on the CUDA cores' terms (the general instance's): C B^T
+    at the peak of the inputs' type (a bf16 product accumulated in float32
+    may run on the tensor cores), the rest in float32 at 67 TFLOP/s (M and
+    the state are float32), against the bytes. Returns (ms, bound by,
+    FLOPs, bytes)."""
+    cb_flops, f32_flops, elem_flops, nbytes = ssd_work(b, s, h, p, g, n, chunk, dtype, init)
+    t_ops = (cb_flops / FLOPS_PER_S[dtype]
+             + (f32_flops + elem_flops) / FLOPS_PER_S[torch.float32]) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
-            cb_flops + f32_flops, nbytes)
+            cb_flops + f32_flops + elem_flops, nbytes)
+
+
+def ssd_bound_tc(b, s, h, p, g, n, chunk, dtype, init):
+    """Least time on the wgmma instance's terms: every product on the bf16
+    tensor cores (989 TFLOP/s), each product with a float32 operand counted
+    twice (its bf16 hi and lo halves), the elementwise weights of M in
+    float32, against the bytes. Returns (ms, bound by)."""
+    cb_flops, f32_flops, elem_flops, nbytes = ssd_work(b, s, h, p, g, n, chunk, dtype, init)
+    t_ops = ((cb_flops + 2 * f32_flops) / FLOPS_PER_S[torch.bfloat16]
+             + elem_flops / FLOPS_PER_S[torch.float32]) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+#: the K3 cases timed, each instance that takes them in turns on one card
+TIMED_SSD = ("path", "ragged", "n64")
 
 
 def check_ssd(device) -> dict:
+    """Every case through every instance that takes it (bf16 at the
+    configs' heads: wgmma and general; the rest: general) against the
+    plain version; the timed cases timed with the instances in turns
+    (wgmma, general, general, wgmma)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
     timed = {}
@@ -568,32 +607,61 @@ def check_ssd(device) -> dict:
         for name, b, s, h, p, g, n, chunk, valid, init in SSD_CASES:
             x, dt, A, B, C, D, st = ssd_inputs(gen, b, s, h, p, g, n, valid, init,
                                                dtype, device)
-            y, final = ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk, initial_state=st)
-            torch.cuda.synchronize()
             want_y, want_final = ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk,
                                                     initial_state=st)
             torch.cuda.synchronize()
-            abs_err, over = excess(y, want_y, MODEL_TOL[dtype])
-            st_err, st_over = excess(final, want_final, MODEL_TOL[dtype])
-            row = {"case": name, "shape": [b, s, h, p, g, n], "chunk": chunk,
-                   "valid_steps": valid, "initial_state": init,
-                   "dtype": DTYPE_NAME[dtype], "max_abs_err": abs_err,
-                   "state_max_abs_err": st_err, "tol": MODEL_TOL[dtype],
-                   "max_abs_y": float(want_y.abs().max())}
-            if name == "path":
-                call = lambda: ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
-                row["ms"] = time_ms(call, reps=9)
-                row["device_ms"] = device_ms(call)
-                row["plain_ms"] = time_ms(lambda: ssd.ssd_scan_plain(
-                    x, dt, A, B, C, D, chunk=chunk), reps=3)
-                (row["bound_ms"], row["bound_by"], row["flops"],
-                 row["bytes"]) = ssd_bound(b, s, h, p, g, n, chunk, dtype, init)
-                row["library_ms"] = None
-                timed[dtype] = row
-            say("kernels", kernel="ssd_scan", **row)
-            if not (over <= 0 and st_over <= 0):
-                fail(f"ssd_scan disagrees with its plain version: {row}")
-            del x, dt, B, C, y, final, want_y, want_final
+            picked = ssd.instance_for(dtype, p, n, chunk)
+            instances = ssd.INSTANCES if picked == "wgmma" else ("general",)
+            rows = {}
+            for inst in instances:
+                y, final = ssd._ssd_scan(x, dt, A, B, C, D, chunk=chunk, initial_state=st,
+                                         instance=inst)
+                torch.cuda.synchronize()
+                abs_err, over = excess(y, want_y, MODEL_TOL[dtype])
+                st_err, st_over = excess(final, want_final, MODEL_TOL[dtype])
+                rows[inst] = {"case": name, "instance": inst, "picked": inst == picked,
+                              "shape": [b, s, h, p, g, n], "chunk": chunk,
+                              "valid_steps": valid, "initial_state": init,
+                              "dtype": DTYPE_NAME[dtype], "max_abs_err": abs_err,
+                              "state_max_abs_err": st_err, "tol": MODEL_TOL[dtype],
+                              "max_abs_y": float(want_y.abs().max())}
+                if not (over <= 0 and st_over <= 0):
+                    fail(f"ssd_scan disagrees with its plain version: {rows[inst]}")
+                del y, final
+            if name in TIMED_SSD and (dtype == torch.bfloat16 or name == "path"):
+                calls = {inst: (lambda inst=inst: ssd._ssd_scan(x, dt, A, B, C, D, chunk=chunk,
+                                                                instance=inst))
+                         for inst in instances}
+                order = list(instances) + list(reversed(instances))
+                runs = {inst: [] for inst in instances}
+                for inst in order:
+                    runs[inst].append(device_ms(calls[inst]))
+                bound, by, flops, nbytes = ssd_bound(b, s, h, p, g, n, chunk, dtype, False)
+                bound_tc, by_tc = ssd_bound_tc(b, s, h, p, g, n, chunk, dtype, False)
+                plain_ms = time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk),
+                                   reps=3)
+                if "wgmma" in calls:           # where its three launches' time goes
+                    split = trace_split(calls["wgmma"], 5, top=3)
+                    rows["wgmma"]["launches_device_ms"] = {
+                        re.search(r"ssd_\w+", name).group(0): ms
+                        for name, ms in split["top_kernels_ms"]}
+                own = {"wgmma": (bound_tc, by_tc), "general": (bound, by)}
+                for inst in instances:
+                    dev_ms = statistics.mean(runs[inst])
+                    rows[inst].update({
+                        "ms": time_ms(calls[inst], reps=9), "device_ms": dev_ms,
+                        "device_ms_runs": runs[inst], "plain_ms": plain_ms,
+                        "bound_ms": own[inst][0], "bound_by": own[inst][1],
+                        "bound_share": own[inst][0] / dev_ms,
+                        "bound_cuda_core_ms": bound, "bound_cuda_core_by": by,
+                        "bound_cuda_core_share": bound / dev_ms,
+                        "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
+                        "bound_tc_share": bound_tc / dev_ms, "flops": flops,
+                        "bytes": nbytes, "library_ms": None})
+                    timed[(name, dtype, inst)] = rows[inst]
+            for row in rows.values():
+                say("kernels", kernel="ssd_scan", **row)
+            del x, dt, B, C, want_y, want_final
     return timed
 
 
@@ -623,11 +691,22 @@ F32_TOL = 1e-3
 
 def counts() -> dict:
     return {"flash_attention": fa.launch_count, "rmsnorm": rn.launch_count,
-            "ssd_scan": ssd.launch_count}
+            "ssd_scan": ssd.launch_count,
+            **{f"ssd_scan.{k}": v for k, v in ssd.instance_counts.items()}}
 
 
 def zero_counts() -> None:
     fa.launch_count = rn.launch_count = ssd.launch_count = 0
+    for k in ssd.instance_counts:
+        ssd.instance_counts[k] = 0
+
+
+def counted(fn):
+    """``fn()`` and the kernel launches it made (counts read before and
+    after, not zeroed)."""
+    before = counts()
+    out = fn()
+    return out, {k: v - before[k] for k, v in counts().items()}
 
 
 def timed_wall(fn):
@@ -655,10 +734,16 @@ def manual_greedy(model, prompt, max_new: int, slot: int) -> list:
     return out
 
 
+#: the port's kernels by a fragment of their device function names (K3: its
+#: three wgmma-instance launches and the general instance)
+KERNEL_NAMES = {"flash_attention": "flash_fwd", "rmsnorm": "rmsnorm_", "ssd_scan": "ssd_"}
+
+
 def trace_split(fn, calls: int, top: int) -> dict:
     """Where the device time of ``fn`` goes: from a torch.profiler trace of
-    ``calls`` warm calls, the device time per call, the kernels per call
-    and the ``top`` largest kernels by device time per call."""
+    ``calls`` warm calls, the device time per call, the kernels per call,
+    the ``top`` largest kernels by device time per call, and each of the
+    port's kernels' device time per call (KERNEL_NAMES)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -673,9 +758,12 @@ def trace_split(fn, calls: int, top: int) -> dict:
             n_kernels += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    ours = {k: sum(ms for name, ms in by_name.items() if frag in name) / calls
+            for k, frag in KERNEL_NAMES.items()}
     return {"device_ms": sum(by_name.values()) / calls if n_kernels else None,
             "kernels": n_kernels / calls,
-            "top_kernels_ms": [[name[:80], ms / calls] for name, ms in largest]}
+            "top_kernels_ms": [[name[:80], ms / calls] for name, ms in largest],
+            "port_kernels_ms": ours}
 
 
 def decode_profile(model, steps: int = 5) -> dict:
@@ -822,11 +910,18 @@ def run_path(phase, model, prompts, cache_shapes_ok):
                           for _ in range(PREFILL_REPEATS)]
         out[f"prefill_{b}x{s}"]["median_wall_s"] = statistics.median(walls)
         split = trace_split(lambda: model.prefill(prompts[shape]), 2, top=8)
+        dev = split["device_ms"]
+        out[f"prefill_{b}x{s}"].update(
+            device_ms=dev, port_kernels_ms=split["port_kernels_ms"],
+            port_kernels_share={k: v / dev for k, v in split["port_kernels_ms"].items()}
+            if dev else "not measured")
         say(phase, step="prefill_repeats", batch=b, seq=s, wall_s=walls,
             median_wall_s=statistics.median(walls),
             median_tokens_per_s=b * s / statistics.median(walls),
-            device_ms=split["device_ms"], device_kernels=split["kernels"],
-            top_kernels_ms=split["top_kernels_ms"])
+            device_ms=dev, device_kernels=split["kernels"],
+            top_kernels_ms=split["top_kernels_ms"],
+            port_kernels_ms=split["port_kernels_ms"],
+            port_kernels_share=out[f"prefill_{b}x{s}"]["port_kernels_share"])
 
     reqs = serve_requests(vocab)
     eng = ServeEngine(model, **ENGINE)
@@ -925,8 +1020,17 @@ def ssm_path(device) -> tuple[dict, object]:
     out["layerwise_bfloat16"] = layerwise(model, twin, toks, BF16_TOL)
     out["layerwise_float32"] = layerwise(model32, twin32, toks, F32_TOL)
 
-    logits = {"kernels": full_logits, "plain": twin.prefill(toks)[0],
-              "kernels_f32": model32.prefill(toks)[0], "plain_f32": twin32.prefill(toks)[0]}
+    (kernels_f32, _), f32_launches = counted(lambda: model32.prefill(toks))
+    (plain, plain_f32), twin_launches = counted(
+        lambda: (twin.prefill(toks)[0], twin32.prefill(toks)[0]))
+    out["launches_float32_and_twins"] = {"kernels_f32": f32_launches, "twins": twin_launches}
+    say("ssm_serving", step="float32_and_twin_launches", **out["launches_float32_and_twins"])
+    if (f32_launches["ssd_scan.general"] != cfg.n_layers or f32_launches["ssd_scan.wgmma"]
+            or any(twin_launches.values())):
+        fail(f"ssm_serving: the float32 prefill must run K3's general instance once a "
+             f"layer and the plain twins no kernel: {out['launches_float32_and_twins']}")
+    logits = {"kernels": full_logits, "plain": plain, "kernels_f32": kernels_f32,
+              "plain_f32": plain_f32}
     out["logits"] = end_to_end_logits(logits, PREFILL_SHAPES[0])
     out["consistency_float32"] = check_consistency(
         "ssm_serving", model32, twin32, toks, logits["kernels_f32"], logits["plain_f32"],
@@ -1157,10 +1261,13 @@ def main() -> int:
     #    recurrence); K4 norms every step
     ssm, ssm_model = ssm_path(device)
     ssm_steps = ssm["launches"]
+    # a bf16 prefill runs K3's wgmma instance once a layer and the general
+    # instance never
+    n_layers = ssm_model.cfg.n_layers
     if (min(c["rmsnorm"] for c in ssm_steps.values()) <= 0
-            or min(c["ssd_scan"] for step, c in ssm_steps.items()
-                   if step.startswith("prefill")) <= 0
-            or ssm_steps["engine"]["ssd_scan"] != 0):
+            or any((c["ssd_scan"], c["ssd_scan.wgmma"], c["ssd_scan.general"])
+                   != ((n_layers, n_layers, 0) if step.startswith("prefill") else (0, 0, 0))
+                   for step, c in ssm_steps.items())):
         fail(f"the ssm serving path did not launch its kernels as it should: {ssm_steps}")
     say("ssm_serving", step="decode_profile", **decode_profile(ssm_model))
     del ssm_model
@@ -1168,8 +1275,7 @@ def main() -> int:
     at = timed[(K_FULL, torch.float64)]     # the shape simulate_batch scans
     attn = attn_timed[("path", torch.bfloat16)]   # the serving path's per-layer call
     norm = norm_timed[(8192, 1024, torch.bfloat16)]   # ln1 / ln2 rows of the prefill
-    scan = ssd_timed[torch.bfloat16]        # mamba2's per-layer call in the prefill
-
+    scan = ssd_timed[("path", torch.bfloat16, "wgmma")]   # mamba2's per-layer call
     def launches_of(name):
         """A kernel's launches in each run of the two serving paths."""
         steps = {f"{ARCH}.{step}": c[name] for step, c in by_step.items()}
@@ -1225,11 +1331,21 @@ def main() -> int:
         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
         "bound_by": scan["bound_by"], "library_ms": None,
-        "device_ms": scan["device_ms"], "shape": scan["shape"], "chunk": scan["chunk"],
-        "dtype": scan["dtype"],
-        "float32": {k: ssd_timed[torch.float32][k] for k in
-                    ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                     "max_abs_err")},
+        "device_ms": scan["device_ms"], "bound_share": scan["bound_share"],
+        "bound_cuda_core_ms": scan["bound_cuda_core_ms"],
+        "bound_cuda_core_share": scan["bound_cuda_core_share"],
+        "shape": scan["shape"], "chunk": scan["chunk"],
+        "dtype": scan["dtype"], "instance": scan["instance"],
+        "instances": {inst: {
+            "launches": sum(launches_of(f"ssd_scan.{inst}").values()),
+            "launches_by_step": launches_of(f"ssd_scan.{inst}"),
+            **{f"{case}_{DTYPE_NAME[dtype]}": {k: row[k] for k in (
+                "shape", "chunk", "ms", "device_ms", "device_ms_runs", "plain_ms", "bound_ms",
+                "bound_by", "bound_share", "bound_cuda_core_ms", "bound_cuda_core_share",
+                "bound_tc_ms", "bound_tc_share",
+                "max_abs_err", "launches_device_ms") if k in row}
+               for (case, dtype, i), row in ssd_timed.items() if i == inst}}
+            for inst in ssd.INSTANCES},
         "launches_by_step": launches_of("ssd_scan"),
     }]}
     say("serving", step="summary", **{k: v for k, v in serving.items()

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 no ``ninja``. The build happens at first use, from the sources shipped in
 the package and nothing else, into ``build/repro_torch/`` under the
-current directory, keyed on a hash of the source and the flags so an
-edited kernel is rebuilt. A failed build raises; nothing falls back.
+current directory, keyed on a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel or header is
+rebuilt. A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -47,9 +48,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where ``csrc/<name>.cu`` builds to (content-addressed: the source,
+    every header in ``csrc/`` and the flags)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -68,3 +68,26 @@ def test_library_path_follows_source_and_flags():
     assert a.name.startswith("libflash_attention-") and a.suffix == ".so"
     assert a != _build.library_path("rmsnorm")
     assert "-gencode" in _build.NVCC_FLAGS and "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A source's library is keyed on every ``csrc/*.cuh`` too: editing or
+    adding a header changes the path, so no stale library is loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "hopper.cuh"\n')
+    (csrc / "hopper.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path("k")
+    (csrc / "hopper.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
+    (csrc / "hopper.cuh").write_text("// one\n")
+    assert _build.library_path("k") == first
+    (csrc / "more.cuh").write_text("")
+    assert _build.library_path("k") != first
+
+
+def test_the_tensor_core_kernels_share_one_header():
+    for name in ("flash_attention", "ssd_scan"):
+        assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+    assert (_build.CSRC / "hopper.cuh").exists()

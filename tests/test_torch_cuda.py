@@ -269,6 +269,159 @@ def test_ssd_scan_raises_on_cuda_tensors_it_does_not_take(card):
         ssd.ssd_scan(x, dt.cpu(), A, B, C, D, chunk=32)
 
 
+#: (name, b, s, h, p, g, n, chunk, valid steps, initial state): cases of the
+#: wgmma instance (bf16, p 64, n 64 / 128)
+WGMMA_CASES = [
+    ("state_passing", 1, 8192, 8, 64, 1, 128, 256, 8192, True),   # 32 chunks
+    ("grouped", 2, 512, 8, 64, 2, 64, 256, 512, False),           # g = 2, n = 64
+    ("padded_tail", 1, 1024, 32, 64, 1, 128, 256, 1000, False),   # dt, x, B, C = 0 from 1000
+    ("chunk64", 2, 384, 4, 64, 1, 128, 64, 384, True),
+    ("chunk128_n64", 1, 640, 6, 64, 3, 64, 128, 600, True),
+]
+
+
+@pytest.mark.parametrize("name,b,s,h,p,g,n,chunk,valid,init", WGMMA_CASES,
+                         ids=[c[0] for c in WGMMA_CASES])
+def test_ssd_scan_wgmma_instance_matches_plain_version(card, name, b, s, h, p, g, n, chunk,
+                                                       valid, init):
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dt, A, B, C, D, st = _ssd_inputs(s + n + chunk, b, s, h, p, g, n, torch.bfloat16,
+                                        card, init)
+    for t in (x, dt, B, C):
+        t[:, valid:] = 0
+    before = dict(ssd.instance_counts)
+    y, final = ssd.ssd_scan(x, dt, A, B, C, D, chunk=chunk, initial_state=st)
+    torch.cuda.synchronize()
+    assert ssd.instance_counts == {"wgmma": before["wgmma"] + 1, "general": before["general"]}
+    want_y, want_final = ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk, initial_state=st)
+    assert torch.isfinite(y).all() and torch.isfinite(final).all()
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(final, want_final, rtol=tol, atol=tol)
+    if valid < s:
+        assert not y[:, valid:].any()                   # padded steps give y = 0 exactly
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_scan_wgmma_known_case(card, n):
+    """A = 0, dt = 1 and every row of B and C the same one-hot vector: M is
+    the causal 0/1 mask and the state never decays, so y is the prefix sum
+    of x over the whole sequence plus D x — held against a float64 cumsum.
+    A wrong descriptor or swizzle shows here as wrong numbers."""
+    from repro_torch.kernels import ssd_scan as ssd
+    b, s, h, p, g = 2, 1024, 4, 64, 1
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn((b, s, h, p), generator=gen, device=card).bfloat16()
+    B = torch.zeros((b, s, g, n), device=card)
+    B[..., 5] = 1
+    B = B.bfloat16()
+    D = torch.linspace(-1.0, 1.0, h, device=card)
+    y, final = ssd.ssd_scan(x, torch.ones((b, s, h), device=card), torch.zeros(h, device=card),
+                            B, B.clone(), D, chunk=256)
+    torch.cuda.synchronize()
+    xd = x.double()
+    want = (torch.cumsum(xd, 1) + D.double()[None, None, :, None] * xd).float()
+    torch.testing.assert_close(y.float(), want, rtol=2e-2, atol=2e-2)
+    want_final = torch.zeros((b, h, p, n), device=card, dtype=torch.float64)
+    want_final[..., 5] = xd.sum(1)
+    torch.testing.assert_close(final.double(), want_final, rtol=1e-5, atol=1e-4)
+
+
+def _ssd_float64(x, dt, A, B, C, D, chunk, initial_state=None, operand=lambda v: v):
+    """K3's function in float64 by the SSD block decomposition, with the
+    within-chunk cumsum rounded to float32 once as the kernel rounds it.
+    ``operand`` is applied to each product's float32 operand (M, tail x,
+    the entering state). Returns y unrounded and the final state, float64."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc, L = s // chunk, chunk
+    f64 = torch.float64
+    xc = x.to(f64).reshape(b, nc, L, h, p)
+    dtc = dt.to(f64).reshape(b, nc, L, h)
+    Bc = B.to(f64).reshape(b, nc, L, g, n).repeat_interleave(h // g, 3)
+    Cc = C.to(f64).reshape(b, nc, L, g, n).repeat_interleave(h // g, 3)
+    cum = torch.cumsum(A.to(f64) * dtc, 2).float().double()
+    causal = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))[None, None, ..., None]
+    seg = torch.where(causal, cum[:, :, :, None] - cum[:, :, None], 0.0)
+    M = torch.where(causal, torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * torch.exp(seg)
+                    * dtc[:, :, None], 0.0)
+    tail = torch.exp(cum[:, :, -1:] - cum) * dtc
+    Sc = torch.einsum("bclhn,bclhp->bchpn", Bc, operand(tail[..., None] * xc))
+    H = (torch.zeros((b, h, p, n), dtype=f64, device=x.device) if initial_state is None
+         else initial_state.to(f64))
+    h_in = []
+    for c in range(nc):
+        h_in.append(H)
+        H = H * torch.exp(cum[:, c, -1])[..., None, None] + Sc[:, c]
+    y = torch.einsum("bclhn,bchpn->bclhp", Cc, operand(torch.stack(h_in, 1))) \
+        * torch.exp(cum)[..., None]
+    y = y + torch.einsum("bcijh,bcjhp->bcihp", operand(M), xc) + D.to(f64)[:, None] * xc
+    return y.reshape(b, s, h, p), H
+
+
+@pytest.mark.parametrize("n", [128, 64])
+def test_ssd_scan_wgmma_keeps_the_lo_halves(card, n):
+    """The wgmma instance feeds each float32 operand (M, tail x, the
+    entering state) to the bf16 tensor cores as hi + lo. Held against
+    float64, it must stay ten times closer than a control that rounds
+    those operands to bf16 once (as Mamba2's own kernels round M): in the
+    final state, and in y where |y| < 2**-4, so that y's own bf16 rounding
+    (half a unit, 2**-13 there) does not hide the operands' error. A kernel
+    that dropped a lo half would sit near the control."""
+    from repro_torch.kernels import ssd_scan as ssd
+    b, s, h, p, g, chunk = 1, 1024, 32, 64, 1, 256
+    x, dt, A, B, C, D, st = _ssd_inputs(n, b, s, h, p, g, n, torch.bfloat16, card, True)
+    y, final = ssd._ssd_scan(x, dt, A, B, C, D, chunk=chunk, initial_state=st,
+                             instance="wgmma")
+    torch.cuda.synchronize()
+    want_y, want_final = _ssd_float64(x, dt, A, B, C, D, chunk, st)
+    once = lambda v: v.to(torch.bfloat16).double()
+    ctl_y, ctl_final = _ssd_float64(x, dt, A, B, C, D, chunk, st, operand=once)
+    small = want_y.abs() < 2.0 ** -4
+    assert small.sum() > 10_000
+    y_err = (y.double() - want_y).abs()[small].max()
+    y_ctl = (once(ctl_y) - want_y).abs()[small].max()
+    st_err = (final.double() - want_final).abs().max()
+    st_ctl = (ctl_final - want_final).abs().max()
+    assert y_err * 10 <= y_ctl, (y_err, y_ctl)
+    assert st_err * 10 <= st_ctl, (st_err, st_ctl)
+
+
+def test_ssd_scan_both_instances_at_the_path_shape(card):
+    """mamba2's per-layer call of the 4 x 2048 prefill through each instance,
+    named through ``_ssd_scan``; the per-instance counts show which ran."""
+    from repro_torch.kernels import ssd_scan as ssd
+    b, s, h, p, g, n, chunk = 4, 2048, 32, 64, 1, 128, 256
+    x, dt, A, B, C, D, _ = _ssd_inputs(7, b, s, h, p, g, n, torch.bfloat16, card, False)
+    want_y, want_final = ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    tol = ATTN_TOL[torch.bfloat16]
+    for inst in ("wgmma", "general"):
+        before = dict(ssd.instance_counts)
+        y, final = ssd._ssd_scan(x, dt, A, B, C, D, chunk=chunk, instance=inst)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in ssd.instance_counts.items()} == {
+            k: int(k == inst) for k in ssd.INSTANCES}
+        torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(final, want_final, rtol=tol, atol=tol)
+
+
+def test_ssd_scan_wgmma_instance_raises_and_never_falls_back(card):
+    from repro_torch.kernels import ssd_scan as ssd
+    x, dt, A, B, C, D, _ = _ssd_inputs(1, 1, 256, 4, 64, 1, 128, torch.float32, card, False)
+    before = (ssd.launch_count, dict(ssd.instance_counts))
+    with pytest.raises(ValueError, match="wgmma instance takes bf16"):
+        ssd._ssd_scan(x, dt, A, B, C, D, chunk=256, instance="wgmma")
+    xb, Bb, Cb = x.bfloat16(), B.bfloat16(), C.bfloat16()
+    with pytest.raises(ValueError, match="wgmma instance takes"):
+        ssd._ssd_scan(xb, dt, A, Bb, Cb, D, chunk=32, instance="wgmma")   # 32 % 64
+    shifted = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=card)[1:].view(xb.shape)
+    shifted.copy_(xb)
+    assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+    with pytest.raises(RuntimeError, match="16-byte aligned"):
+        ssd.ssd_scan(shifted, dt, A, Bb, Cb, D, chunk=256)
+    assert (ssd.launch_count, ssd.instance_counts) == before
+
+
 def test_ssm_model_on_the_card_matches_its_plain_twin(card):
     """mamba2's smoke config in float32: the kernel model (K3, K4) against
     the plain twin on the same weights, prefill (ragged: 40 tokens, chunk

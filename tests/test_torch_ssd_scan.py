@@ -234,3 +234,174 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ssd.ssd_scan(*meta, chunk=32)
     with pytest.raises(ValueError):                      # operands on two devices
         ssd.ssd_scan(meta[0], dt, A, B, C, D, chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's two instances: which one a CUDA call takes, the wgmma
+# instance's scratch, and its arithmetic in plain torch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,p,n,chunk,want", [
+    (torch.bfloat16, 64, 128, 256, "wgmma"),     # mamba2-370m's heads
+    (torch.bfloat16, 64, 64, 256, "wgmma"),      # zamba2-7b's heads
+    (torch.bfloat16, 64, 128, 64, "wgmma"),
+    (torch.float32, 64, 128, 256, "general"),    # float32: the CUDA cores
+    (torch.bfloat16, 16, 16, 32, "general"),     # the smoke configs' heads
+    (torch.bfloat16, 64, 128, 96, "general"),    # chunk not a multiple of 64
+    (torch.bfloat16, 64, 32, 256, "general"),
+    (torch.bfloat16, 32, 128, 256, "general"),
+], ids=str)
+def test_instance_for_picks_by_type_and_head(dtype, p, n, chunk, want):
+    assert ssd.instance_for(dtype, p, n, chunk) == want
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_instance_for_picks_wgmma_for_the_configs_bf16_heads(arch):
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = get_config(arch)
+    s = cfg.ssm
+    assert cfg.dtype == "bfloat16"
+    assert ssd.instance_for(torch.bfloat16, s.head_dim, s.state_dim, s.chunk) == "wgmma"
+    assert ssd.instance_for(torch.float32, s.head_dim, s.state_dim, s.chunk) == "general"
+    t = get_smoke_config(arch).ssm
+    assert ssd.instance_for(torch.bfloat16, t.head_dim, t.state_dim, t.chunk) == "general"
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,states_bytes", [
+    (4, 2048, 32, 64, 128, 256, 33_554_432),     # the serving path's prefill
+    (1, 1024, 32, 64, 128, 256, 4_194_304),      # a 1,000-token prompt, padded
+    (2, 512, 112, 64, 64, 256, 7_340_032),       # zamba2's heads
+], ids=str)
+def test_scratch_shapes_follow_from_the_call(b, s, h, p, n, chunk, states_bytes):
+    shapes = ssd.scratch_shapes(b, s, h, p, n, chunk)
+    nc = s // chunk
+    assert shapes == {"cd": (b, h, s, 2), "states": (b, h, nc, n, p),
+                      "hin": (b, h, nc, n // 64, 2, 64, p)}
+    assert list(shapes) == list(ssd.SCRATCH_DTYPES)   # the C entry point's order
+    size = {k: int(np.prod(v)) * torch.empty((), dtype=ssd.SCRATCH_DTYPES[k]).element_size()
+            for k, v in shapes.items()}
+    # the chunk states in float32 and the entering states as bf16 hi + lo
+    # take the same bytes: 33.5 MB each at the path shape
+    assert size["states"] == size["hin"] == states_bytes
+    assert size["cd"] == 8 * b * h * s
+
+
+def _split_bf16(v: torch.Tensor):
+    """``v`` as ``hi + lo`` with ``hi = bf16(v)``, ``lo = bf16(v - hi)``:
+    how the wgmma instance feeds a float32 operand (M, the weighted x of
+    the chunk states, the entering state) to the bf16 tensor cores, two
+    products into one accumulator; ``hi + lo`` is within 2**-16 |v|."""
+    hi = v.to(torch.bfloat16)
+    return hi, (v - hi.float()).to(torch.bfloat16)
+
+
+def _path_chunk(seed, head, h=32, L=256, n=128, p=64):
+    """One chunk of mamba2's path at its ranges: bf16 x, B, C ~ N(0, 1);
+    dt = softplus(N(0, 1)); A of the head from -linspace(1, 16, h)."""
+    rng = np.random.default_rng(seed)
+    bf = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+    x, B, C = bf(L, p).float(), bf(L, n).float(), bf(L, n).float()
+    dt = torch.nn.functional.softplus(torch.from_numpy(rng.standard_normal(L).astype(np.float32)))
+    a = float(-np.linspace(1.0, 16.0, h, dtype=np.float32)[head])
+    cum = torch.cumsum(a * dt, 0, dtype=torch.float64).float()
+    return x, B, C, dt, cum
+
+
+def _operand(kind, x, B, C, dt, cum):
+    """(float32 operand v, bf16-exact other factor w, v @ w as the kernel
+    forms it): M x of the outputs, B^T (tail x) of the chunk state, C H of
+    the entering state (H from a seeded generator)."""
+    if kind == "M":
+        L = x.shape[0]
+        causal = torch.tril(torch.ones(L, L, dtype=torch.bool))
+        seg = torch.where(causal, cum[:, None] - cum[None, :], 0.0)
+        M = torch.where(causal, (C @ B.T) * torch.exp(seg) * dt[None, :], 0.0)
+        return M, x
+    if kind == "tail_x":
+        tail = torch.exp(cum[-1] - cum) * dt
+        return (tail[:, None] * x).T.contiguous(), B        # (p, L) @ (L, n): S_c^T
+    H = torch.from_numpy(np.random.default_rng(1).standard_normal((B.shape[1], x.shape[1]))
+                         .astype(np.float32)) * 10
+    return H.T.contiguous(), C.T.contiguous()                # (p, n) @ (n, L): (C H)^T
+
+
+@pytest.mark.parametrize("kind", ["M", "tail_x", "state"])
+@pytest.mark.parametrize("head", [0, 15, 31], ids=lambda i: f"head{i}")
+def test_hi_lo_split_holds_what_one_bf16_rounding_does_not(kind, head):
+    """The wgmma instance's products with a float32 operand run as hi . w +
+    lo . w: within 2**-16 of sum |v| |w| of the float64 product, element by
+    element. One bf16 rounding of v (as Mamba2's own kernels round M) is
+    not."""
+    v, w = _operand(kind, *_path_chunk(20 + head, head))
+    hi, lo = _split_bf16(v)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    want = v.double() @ w.double()
+    scale = v.double().abs() @ w.double().abs()
+    split = hi.double() @ w.double() + lo.double() @ w.double()
+    assert ((split - want).abs() <= 2.0 ** -16 * scale).all()
+    once = hi.double() @ w.double()
+    assert ((once - want).abs() > 2.0 ** -16 * scale).any()
+
+
+def _wgmma_passes(x, dt, A, B, C, D, chunk, initial_state=None):
+    """The wgmma instance's three passes in plain float32 torch, each
+    product with a float32 operand as the sum of its bf16 hi and lo halves:
+    chunk states S_c = B^T (tail x); the state pass H_in[c] = H, H <-
+    exp(cum_last) H + S_c; outputs exp(cum_i) (C H_in) + M x + D x, rounded
+    once."""
+    def split(v):
+        hi, lo = _split_bf16(v)
+        return hi.float(), lo.float()
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc, L = s // chunk, chunk
+    xf = x.float().reshape(b, nc, L, h, p)
+    Bf = B.float().reshape(b, nc, L, g, n).repeat_interleave(h // g, 3)
+    Cf = C.float().reshape(b, nc, L, g, n).repeat_interleave(h // g, 3)
+    dtc = dt.reshape(b, nc, L, h)
+    cum = torch.cumsum(A * dtc, 2, dtype=torch.float64).float()
+    tail = torch.exp(cum[:, :, -1:] - cum) * dtc
+    hi, lo = split(tail[..., None] * xf)
+    Sc = sum(torch.einsum("bclhn,bclhp->bchnp", Bf, t) for t in (hi, lo))
+    H = (torch.zeros(b, h, n, p) if initial_state is None
+         else initial_state.transpose(-1, -2).float())
+    h_in = []
+    for c in range(nc):
+        h_in.append(H)
+        H = H * torch.exp(cum[:, c, -1])[..., None, None] + Sc[:, c]
+    hi, lo = split(torch.stack(h_in, 1))
+    y = sum(torch.einsum("bclhn,bchnp->bclhp", Cf, t) for t in (hi, lo))
+    y = y * torch.exp(cum)[..., None]
+    causal = torch.tril(torch.ones(L, L, dtype=torch.bool))[None, None, :, :, None]
+    seg = torch.where(causal, cum[:, :, :, None] - cum[:, :, None], 0.0)
+    M = torch.where(causal, torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * torch.exp(seg)
+                    * dtc[:, :, None], 0.0)
+    hi, lo = split(M)
+    y = y + sum(torch.einsum("bcijh,bcjhp->bcihp", t, xf) for t in (hi, lo))
+    y = y + D[None, None, None, :, None] * xf
+    return y.reshape(b, s, h, p).to(x.dtype), H.transpose(-1, -2).contiguous()
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,init", [
+    (1, 256, 4, 64, 1, 128, 64, False),
+    (2, 256, 4, 64, 2, 64, 128, True),
+    (1, 512, 2, 64, 1, 128, 256, True),
+], ids=str)
+def test_wgmma_passes_match_the_reference(b, s, h, p, g, n, chunk, init):
+    """The decomposition the wgmma instance runs, hi / lo splits included,
+    against the reference's ``ref.ssd_scan`` on bf16 inputs at the model's
+    ranges (dt = softplus(N(0, 1)), A = -linspace(1, 16, h)): y within one
+    bf16 unit of the largest |y| (both round once), the final state within
+    the reference's initial-state tolerance, 2e-4."""
+    rng = np.random.default_rng(s + n + chunk)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    x, B, C = _bf16(f(b, s, h, p)), _bf16(f(b, s, g, n)), _bf16(f(b, s, g, n))
+    dt = np.log1p(np.exp(f(b, s, h))).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, h, dtype=np.float32)
+    D, st = f(h), (f(b, h, p, n) if init else None)
+    y, final = _wgmma_passes(*_torch((x, dt, A, B, C, D)), chunk,
+                             None if st is None else torch.from_numpy(st))
+    want_y, want_st = jref.ssd_scan(*_jax((x, dt, A, B, C, D)), chunk=chunk,
+                                    initial_state=None if st is None else jnp.asarray(st))
+    assert y.dtype == torch.bfloat16
+    assert np.abs(_f32(y) - _f32(want_y)).max() <= _bf16_unit(want_y)
+    np.testing.assert_allclose(final.numpy(), _f32(want_st), rtol=2e-4, atol=2e-4)
