@@ -5,9 +5,9 @@
 
 Builds every hand-written kernel from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card (phase 3; K3 through both of its instances where both
-take the case, the bf16 ones timed in turns, wgmma / general / general /
-wgmma), then drives the port's paths at full size:
+version on the card (phase 3: K1 bit for bit; K3 through both of its
+instances where both take the case, the bf16 ones timed in turns, wgmma /
+general / general / wgmma), then drives the port's paths at full size:
 
 * phase 4, the paper's path — the Table-4 workload at ``count_scale=1.0``
   (4.34 M messages) on the 16-node x 16-core cluster: mapping ->
@@ -34,7 +34,21 @@ wgmma), then drives the port's paths at full size:
   logits' scale, so there they are reported only), the engine's first
   step and its tokens. The engine is not held to a manual decode loop
   here: admitting a prompt advances every other slot's SSM state, in the
-  reference's engine too.
+  reference's engine too;
+* phase 7, the online fleet scheduler — ``FleetScheduler(device=None)``
+  (every re-simulation through K1) with ``check_invariants()`` after every
+  event: ``table4_poisson`` under each one-shot strategy (beside a host
+  ``segmented`` run), ``rack_oversub`` with the remap search, the reference
+  fault trace under each recovery policy (one with a joint-admission
+  window), ``serve_slo`` with the autoscaler and ``fleet1k`` at 2,048
+  arrivals on 1,024 nodes in nested pod/rack cells. Each run is repeated on
+  the same card on the ``torch`` backend (plain PyTorch, no K1; fleet1k's
+  pair on its first 512 arrivals) and must decide identically, with a
+  byte-identical flight-recorder dump and equal ``FleetStats``: the plain
+  scan composes in K1's order, so the two give the same bits. Each run
+  reports its wall time, events, scans, K1 launches and the card's idle
+  share (CUDA events around each scan's copies and launches); K1 is then
+  timed at the scheduler's row sizes.
 
 Needs a CUDA card and ``nvcc``; exits non-zero when either is missing or
 any phase fails. The last line of standard output is ``{"ok": true,
@@ -59,7 +73,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import ClusterTopology, mapping, workloads  # noqa: E402
+from repro_torch.core import ClusterTopology, mapping, sim_scan, workloads  # noqa: E402
 from repro_torch.core.simulator import simulate, simulate_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -67,6 +81,9 @@ from repro_torch.kernels import lindley_scan as ls  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.sched import (AdmissionConfig, AutoscaleConfig, CellConfig,  # noqa: E402
+                               FleetScheduler, RecoveryConfig, RemapConfig,
+                               SchedulerConfig, get_trace, reference_fault_trace)
 from repro_torch.search import search_placement  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
@@ -211,8 +228,11 @@ def check_kernels(device) -> dict:
             want = ls.lindley_scan_plain(u, v)
             torch.cuda.synchronize()
             rel, abs_err = rel_err(got, want, floor)
+            bits = torch.int64 if dtype == torch.float64 else torch.int32
             row = {"shape": [b, n], "dtype": str(dtype).split(".")[-1],
-                   "max_rel_err": rel, "max_abs_err": abs_err, "tol": TOL[dtype]}
+                   "max_rel_err": rel, "max_abs_err": abs_err, "tol": TOL[dtype],
+                   # the plain version composes in the kernel's order
+                   "bit_identical": bool(torch.equal(got.view(bits), want.view(bits)))}
             # the small shapes are timed too: at (3, 7) the kernel's time is
             # the fixed cost of its launches, which the one-row time is read against
             row["ms"] = time_ms(lambda: ls.lindley_scan(u, v), reps=9)
@@ -223,7 +243,7 @@ def check_kernels(device) -> dict:
                 row["bound_ms"], row["bound_by"], row["bytes"] = bound_ms(b, n, dtype)
                 timed[(b, dtype)] = row
             say("kernels", kernel="lindley_scan", **row)
-            if not rel <= TOL[dtype]:
+            if not (rel <= TOL[dtype] and row["bit_identical"]):
                 fail(f"lindley_scan disagrees with its plain version: {row}")
             worst[dtype] = max(worst[dtype], rel)
             del u, v, got, want
@@ -1196,6 +1216,342 @@ def float32_twin(device) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the online fleet scheduler, every re-simulation through K1
+# ---------------------------------------------------------------------------
+#: fleet1k's gated pair (kernel and torch twin) takes the trace's first
+#: arrivals only; the kernel alone runs all 2,048 (the twin at full size
+#: would add about as long again as the kernel run to the script)
+FLEET1K_TWIN_ARRIVALS = 512
+#: ``benchmarks/fault_bench.py``'s recovery policies, plus one run with a
+#: joint-admission window so that offline cores reach ``search.joint``
+FAULT_RUNS = (("requeue", "kill", 0.0), ("elastic", "kill", 0.0),
+              ("requeue", "proactive", 0.0), ("elastic", "proactive", 0.5))
+
+
+class ScanProbe:
+    """Counts a run's simulate / simulate_batch scans and brackets every
+    device scan (copies in, launches, copies out) with CUDA events."""
+
+    def __init__(self):
+        self.calls = {"simulate": 0, "simulate_batch": 0}
+        self.spans = []        # (start, end) CUDA events of each device scan
+        self.rows = []         # (rows, elements) of each device scan
+
+    def _counted(self, name, fn):
+        def wrapper(*args, **kw):
+            self.calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
+
+    def _bracketed(self, fn, shape_of):
+        def wrapper(arg, *args, **kw):
+            self.rows.append(shape_of(arg))
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(arg, *args, **kw)
+            end.record()
+            self.spans.append((start, end))
+            return out
+        return wrapper
+
+    def __enter__(self):
+        self._saved = {name: getattr(sim_scan, name) for name in (
+            "simulate_scan", "simulate_scan_batch", "_scan_rows", "_waits_ragged")}
+        sim_scan.simulate_scan = self._counted("simulate", sim_scan.simulate_scan)
+        sim_scan.simulate_scan_batch = self._counted("simulate_batch",
+                                                     sim_scan.simulate_scan_batch)
+        sim_scan._scan_rows = self._bracketed(
+            sim_scan._scan_rows, lambda u: (1, u.size) if u.ndim == 1 else u.shape)
+        sim_scan._waits_ragged = self._bracketed(
+            sim_scan._waits_ragged, lambda us: (len(us), max(u.size for u in us)))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(sim_scan, name, fn)
+
+    def busy_ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def sched_run(spec, strategy: str, config, device, *, faults=None, stream=None,
+              arrivals=None) -> dict:
+    """One scheduler run, event by event with ``check_invariants()`` after
+    each, recording what it decided and what it cost."""
+    rec = obs.Recorder()
+    sched = FleetScheduler(spec.cluster, strategy, config=config, recorder=rec,
+                           device=device)
+    placements = []
+    assign, remove = sched.placement.assign, sched.placement.remove
+
+    def logged_assign(job_id, cores):
+        placements.append((sched.now, "assign", int(job_id), cores.tolist()))
+        return assign(job_id, cores)
+
+    def logged_remove(job_id):
+        placements.append((sched.now, "remove", int(job_id), []))
+        return remove(job_id)
+
+    sched.placement.assign, sched.placement.remove = logged_assign, logged_remove
+    for g in getattr(spec, "replicas", ()):
+        sched.submit(g, at=0.0, resident=True)
+    sched.submit_trace(spec.arrivals if arrivals is None else spec.arrivals[:arrivals])
+    if faults is not None:
+        sched.submit_faults(faults)
+    if stream is not None:
+        sched.submit_traffic(stream)
+    until = sched.autoscale.horizon if sched.autoscale.enabled else None
+    events, check_s = [], 0.0
+    torch.cuda.synchronize()
+    ls.launch_count = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with ScanProbe() as probe:
+        start.record()
+        t0 = time.perf_counter()
+        while until is None or (sched.events.peek() is not None
+                                and sched.events.peek().time <= until):
+            ev = sched.step()
+            if ev is None:
+                break
+            events.append((ev.time, ev.kind, ev.job_id, ev.epoch, ev.node, ev.deadline))
+            t1 = time.perf_counter()
+            sched.check_invariants()
+            check_s += time.perf_counter() - t1
+        stats = sched.run()                 # nothing left to step: settles the clock
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = ls.launch_count
+    span_ms = start.elapsed_time(end)
+    busy_ms = probe.busy_ms()
+    return {
+        "sched": sched, "stats": stats, "dump": json.dumps(rec.dump(), sort_keys=True),
+        "decisions": {"events": events, "placements": placements,
+                      "remap": [dataclasses.astuple(d) for d in sched.decisions],
+                      "autoscale": [dataclasses.astuple(d) for d in sched.autoscale.decisions],
+                      "draining": sorted(sched.draining.items()),
+                      "pending": list(sched.pending)},
+        "row": {"backend": sched.sim_backend, "device": str(sched.device),
+                "wall_s": wall, "check_invariants_s": check_s, "events": len(events),
+                "ms_per_event": wall / max(len(events), 1) * 1e3,
+                "ms_per_event_without_checks": (wall - check_s) / max(len(events), 1) * 1e3,
+                "simulate_calls": probe.calls["simulate"],
+                "simulate_batch_calls": probe.calls["simulate_batch"],
+                "k1_launches": launches, "device_span_ms": span_ms,
+                "device_busy_ms": busy_ms,
+                "idle_share": (1.0 - busy_ms / span_ms) if span_ms > 0 else None,
+                "n_jobs": stats.n_jobs, "makespan": stats.makespan,
+                "total_msg_wait": stats.total_msg_wait},
+        "shapes": probe.rows,
+    }
+
+
+def _numbers(tree, path=""):
+    """(path, value) of every leaf of a stats dict."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _numbers(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _numbers(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def stats_margin(a, b) -> tuple[float, list]:
+    """Largest relative difference of the float fields of two FleetStats
+    and the fields that differ otherwise (ints, names, keys)."""
+    la = dict(_numbers(dataclasses.asdict(a)))
+    lb = dict(_numbers(dataclasses.asdict(b)))
+    if la.keys() != lb.keys():
+        return float("inf"), sorted(set(la) ^ set(lb))[:5]
+    worst, other = 0.0, []
+    for k, x in la.items():
+        y = lb[k]
+        if isinstance(x, float) and isinstance(y, float) and not isinstance(x, bool):
+            if x != y:
+                worst = max(worst, abs(x - y) / max(abs(x), abs(y), 1e-300))
+        elif x != y:
+            other.append(k)
+    return worst, other[:5]
+
+
+def first_divergence(a: dict, b: dict) -> dict:
+    """The first entry at which two decision logs part, with both values."""
+    for key in a:
+        for i, (x, y) in enumerate(zip(a[key], b[key])):
+            if x != y:
+                return {"log": key, "index": i, "kernel": str(x)[:400], "twin": str(y)[:400]}
+        if len(a[key]) != len(b[key]):
+            return {"log": key, "index": min(len(a[key]), len(b[key])),
+                    "kernel_len": len(a[key]), "twin_len": len(b[key])}
+    return {}
+
+
+def dump_divergence(a: str, b: str) -> dict:
+    """The first record at which two recorder dumps part, and the largest
+    relative difference of the numbers in it (the margin that moved)."""
+    ea, eb = json.loads(a).get("events", []), json.loads(b).get("events", [])
+    for i, (x, y) in enumerate(zip(ea, eb)):
+        if x != y:
+            na, nb = dict(_numbers(x)), dict(_numbers(y))
+            rel = max((abs(na[k] - nb[k]) / max(abs(na[k]), abs(nb[k]), 1e-300)
+                       for k in na.keys() & nb.keys()
+                       if isinstance(na[k], float) and isinstance(nb[k], float)
+                       and na[k] != nb[k]), default=None)
+            return {"record": i, "kernel": str(x)[:400], "twin": str(y)[:400],
+                    "max_rel_diff": rel}
+    return {"records": [len(ea), len(eb)]}
+
+
+def gate(name: str, kernel: dict, twin: dict) -> dict:
+    """The kernel run against its torch twin: the same decisions, a
+    byte-identical recorder dump, FleetStats floats within SIM_TOL."""
+    same = kernel["decisions"] == twin["decisions"]
+    dump_same = kernel["dump"] == twin["dump"]
+    margin, other = stats_margin(kernel["stats"], twin["stats"])
+    verdict = {"decisions_identical": same, "dump_identical": dump_same,
+               "stats_max_rel_diff": margin, "stats_other_diffs": other,
+               "dump_bytes": len(kernel["dump"])}
+    if not (same and dump_same and margin <= SIM_TOL and not other):
+        verdict["first_divergence"] = first_divergence(kernel["decisions"], twin["decisions"])
+        verdict["dump_divergence"] = dump_divergence(kernel["dump"], twin["dump"])
+        say("scheduler", run=name, gate=verdict)
+        fail(f"scheduler run {name}: the kernel run and its torch twin disagree: "
+             f"{json.dumps(verdict)[:2000]}")
+    return verdict
+
+
+def expect_complete(name: str, run: dict, n_jobs: int, resident: int = 0) -> None:
+    """Every job arrived, every batch job departed, the stats are finite."""
+    sched, stats = run["sched"], run["stats"]
+    floats = [v for _, v in _numbers(dataclasses.asdict(stats)) if isinstance(v, float)]
+    if (stats.n_jobs != n_jobs or sched.pending or len(sched.live) != resident
+            or not all(np.isfinite(floats))):
+        fail(f"scheduler run {name}: incomplete or non-finite: n_jobs {stats.n_jobs} "
+             f"of {n_jobs}, pending {len(sched.pending)}, live {len(sched.live)}")
+
+
+def sched_config(spec, **kw):
+    return SchedulerConfig(count_scale=spec.count_scale,
+                           state_bytes_per_proc=spec.state_bytes_per_proc, **kw)
+
+
+def scheduler_runs(device) -> tuple[dict, list]:
+    """Phase 7's five runs, each on the kernel backend and on its torch
+    twin on the same card; returns the rows and the kernel runs' scan
+    shapes."""
+    rows, shapes = {}, []
+
+    def pair(name, spec, strategy, config, *, twin_arrivals=None, **kw):
+        twin_config = dataclasses.replace(config, sim_backend="torch")
+        kernel = sched_run(spec, strategy, config, device, arrivals=twin_arrivals, **kw)
+        twin = sched_run(spec, strategy, twin_config, device, arrivals=twin_arrivals, **kw)
+        if kernel["row"]["backend"] != "kernel" or kernel["row"]["k1_launches"] <= 0:
+            fail(f"scheduler run {name} did not re-simulate through K1: {kernel['row']}")
+        if twin["row"]["k1_launches"] != 0:
+            fail(f"scheduler run {name}: the torch twin launched K1")
+        verdict = gate(name, kernel, twin)
+        rows[name] = {"kernel": kernel["row"], "torch": twin["row"], "gate": verdict}
+        shapes.extend(kernel["shapes"])
+        for backend in ("kernel", "torch"):
+            say("scheduler", run=name, **rows[name][backend])
+        say("scheduler", run=name, gate=verdict)
+        return kernel
+
+    # 1. the paper's trace under every one-shot strategy, and on the host
+    spec = get_trace("table4_poisson")
+    for strategy in mapping.ONE_SHOT_STRATEGIES:
+        name = f"table4_poisson.{strategy}"
+        config = sched_config(spec, remap=RemapConfig(interval=5.0))
+        kernel = pair(name, spec, strategy, config)
+        expect_complete(name, kernel, 16)
+        host = sched_run(spec, strategy, config, "cpu")
+        rows[name]["segmented"] = host["row"]
+        rows[name]["segmented_decisions_identical"] = host["decisions"] == kernel["decisions"]
+        rows[name]["segmented_stats_max_rel_diff"] = stats_margin(kernel["stats"],
+                                                                  host["stats"])[0]
+        say("scheduler", run=name, **host["row"])
+
+    # 2. rack oversubscription, remaps scored by the population search
+    spec = get_trace("rack_oversub")
+    name = "rack_oversub.remap_search"
+    kernel = pair(name, spec, "new", sched_config(
+        spec, remap=RemapConfig(interval=5.0, budget=64)))
+    expect_complete(name, kernel, 16)
+    if kernel["row"]["simulate_batch_calls"] <= 0:
+        fail(f"{name}: the remap search never scored through simulate_batch")
+
+    # 3. the reference fault trace under each recovery policy
+    spec = get_trace("table4_poisson")
+    faults = reference_fault_trace(spec.cluster)
+    for failure, drain, window in FAULT_RUNS:
+        name = f"table4_faults.{failure}_{drain}" + (f".window{window}" if window else "")
+        kernel = pair(name, spec, "new", sched_config(
+            spec, recovery=RecoveryConfig(failure_policy=failure, drain_policy=drain),
+            admission=AdmissionConfig(window=window)), faults=faults)
+        expect_complete(name, kernel, 16)
+        if kernel["stats"].n_node_failures <= 0 or (window and not kernel["stats"].n_joint_batches):
+            fail(f"{name}: the faults or the joint batches did not happen")
+
+    # 4. serving under SLOs, the autoscaler on, at the trace's defaults
+    spec = get_trace("serve_slo")
+    name = "serve_slo.autoscale"
+    kernel = pair(name, spec, "new", sched_config(spec, autoscale=AutoscaleConfig(
+        enabled=True, actions=True, routing="capacity", slos=spec.slos,
+        max_replicas=5, lookahead_s=30.0)), stream=spec.stream)
+    if not kernel["sched"].autoscale.decisions or kernel["stats"].slo_violation_s <= 0:
+        fail(f"{name}: the closed loop took no decision")
+
+    # 5. the 1,024-node fleet at full size, nested pod/rack cells
+    spec = get_trace("fleet1k")
+    config = sched_config(spec, cells=CellConfig(cells="pod/rack"), reclock=True)
+    name = f"fleet1k.first{FLEET1K_TWIN_ARRIVALS}"
+    kernel = pair(name, spec, "new", config, twin_arrivals=FLEET1K_TWIN_ARRIVALS)
+    expect_complete(name, kernel, FLEET1K_TWIN_ARRIVALS)
+    full = sched_run(spec, "new", config, device)
+    expect_complete("fleet1k", full, len(spec.arrivals))
+    if full["row"]["k1_launches"] <= 0:
+        fail("fleet1k did not re-simulate through K1")
+    rows["fleet1k"] = {"kernel": full["row"]}
+    shapes.extend(full["shapes"])
+    say("scheduler", run="fleet1k", arrivals=len(spec.arrivals), **full["row"])
+    return rows, shapes
+
+
+def sched_row_timing(device, shapes: list) -> dict:
+    """K1 at the scheduler's row sizes: the median and the largest
+    single-row scan and the largest batch the kernel runs made, each
+    against its plain version (bit for bit) and its byte bound."""
+    singles = sorted(n for b, n in shapes if b == 1)
+    batches = sorted(((b, n) for b, n in shapes if b > 1), key=lambda s: s[0] * s[1])
+    picks = {"median_row": (1, singles[len(singles) // 2]), "largest_row": (1, singles[-1])}
+    if batches:
+        picks["largest_batch"] = batches[-1]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    out = {"scans": len(shapes), "single_row_scans": len(singles),
+           "batch_scans": len(shapes) - len(singles)}
+    for label, (b, n) in picks.items():
+        u, v = make_rows(gen, int(b), int(n), torch.float64, device)
+        got = ls.lindley_scan(u, v)
+        want = ls.lindley_scan_plain(u, v)
+        torch.cuda.synchronize()
+        bound, bound_by, nbytes = bound_ms(int(b), int(n), torch.float64)
+        out[label] = {"shape": [int(b), int(n)],
+                      "bit_identical": bool(torch.equal(got.view(torch.int64),
+                                                        want.view(torch.int64))),
+                      "ms": time_ms(lambda: ls.lindley_scan(u, v), reps=21),
+                      "device_ms": device_ms(lambda: ls.lindley_scan(u, v), reps=50),
+                      "plain_ms": time_ms(lambda: ls.lindley_scan_plain(u, v), reps=9),
+                      "bound_ms": bound, "bound_by": bound_by}
+        if not out[label]["bit_identical"]:
+            fail(f"lindley_scan at the scheduler's {label} {b} x {n} differs from "
+                 f"its plain version")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1272,6 +1628,17 @@ def main() -> int:
     say("ssm_serving", step="decode_profile", **decode_profile(ssm_model))
     del ssm_model
 
+    # -- phase 7: the online fleet scheduler on device=None (the kernel
+    #    backend), each run against its torch twin on the same card; K1's
+    #    launches counted from 0 over each kernel run
+    t0 = time.perf_counter()
+    sched_rows, sched_shapes = scheduler_runs(device)
+    sched_launches = {f"sched.{name}": r["kernel"]["k1_launches"]
+                      for name, r in sched_rows.items()}
+    sched_rows_k1 = sched_row_timing(device, sched_shapes)
+    say("scheduler", step="summary", seconds=time.perf_counter() - t0,
+        k1_launches=sum(sched_launches.values()), k1_at_scheduler_rows=sched_rows_k1)
+
     at = timed[(K_FULL, torch.float64)]     # the shape simulate_batch scans
     attn = attn_timed[("path", torch.bfloat16)]   # the serving path's per-layer call
     norm = norm_timed[(8192, 1024, torch.bfloat16)]   # ln1 / ln2 rows of the prefill
@@ -1286,11 +1653,13 @@ def main() -> int:
         "name": "lindley_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lindley_scan.cu",
         "replaces": "src/repro/kernels/lindley_scan.py:100",
-        "launches": path_launches, "max_abs_err": at["max_abs_err"],
+        "launches": path_launches + sum(sched_launches.values()),
+        "max_abs_err": at["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"], "library_ms": None, "device_ms": at["device_ms"],
         "shape": at["shape"], "dtype": at["dtype"],
-        "launches_by_step": path["launches"],
+        "launches_by_step": {**path["launches"], **sched_launches},
+        "scheduler_rows": sched_rows_k1,
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -9,6 +9,7 @@ Public surface:
                loop / segmented / torch / kernel backends + simulate_batch
   sim_scan   — segmented max-plus scan backends (DESIGN.md §8)
   workloads  — paper Tables 2–9 + the rack_oversub mix (§9)
+  commgraph  — AppGraph derivation for sharded model jobs (collective traffic)
   convert    — build these objects from plain arrays and field dicts
 """
 from .graphs import (AppGraph, ClusterFull, ClusterTopology, FlatMessages,

@@ -2,11 +2,14 @@
 
 The state this system carries is its workload and fleet state: job
 traffic matrices, the cluster's fields and network hierarchy, a
-placement's per-job core arrays, a tracker's used / offline masks. These
-functions rebuild each from values read off another implementation's
-objects **by attribute** — no import of that implementation is needed,
-so a differential test can hand both packages the same jobs, cluster and
-placement. Arrays are copied; nothing aliases the source object.
+placement's per-job core arrays, a tracker's used / offline masks, and
+the fleet scheduler's inputs: a trace (its cluster, timestamped
+arrivals and knobs and, for a serving trace, resident replicas, SLOs and
+request stream) and injected node events. These functions rebuild each
+from values read off another implementation's objects **by attribute**
+— no import of that implementation is needed, so a differential test
+can hand both packages the same jobs, cluster, placement and trace.
+Arrays are copied; nothing aliases the source object.
 """
 from __future__ import annotations
 
@@ -93,15 +96,87 @@ def _cluster_fields_of(obj) -> dict:
     return fields
 
 
+def _fields(obj, cls) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+
+
+def _trace_from(obj):
+    """A ``sched.traces`` spec (a ``ServeTraceSpec`` when it has a stream)."""
+    from ..sched.traces import ServeTraceSpec, TraceSpec  # sched imports core
+
+    fields = dict(name=obj.name, cluster=from_reference(obj.cluster),
+                  arrivals=from_reference(list(obj.arrivals)),
+                  count_scale=obj.count_scale,
+                  state_bytes_per_proc=obj.state_bytes_per_proc)
+    if not hasattr(obj, "stream"):
+        return TraceSpec(**fields)
+    return ServeTraceSpec(
+        **fields, replicas=from_reference(tuple(obj.replicas)),
+        slos=from_reference(tuple(obj.slos)),
+        stream=None if obj.stream is None else from_reference(obj.stream))
+
+
+def _arrival_from(obj):
+    from .workloads import Arrival
+
+    return Arrival(time=obj.time, graph=from_reference(obj.graph))
+
+
+def _node_event_from(obj):
+    from ..sched.traces import NodeEvent
+
+    return NodeEvent(**_fields(obj, NodeEvent))
+
+
+def _slo_from(obj):
+    from ..serve.fleet import ModelSLO
+
+    return ModelSLO(**_fields(obj, ModelSLO))
+
+
+def _spike_from(obj):
+    from ..serve.fleet import TrafficSpike
+
+    return TrafficSpike(**_fields(obj, TrafficSpike))
+
+
+def _stream_from(obj):
+    from ..serve.fleet import RequestStream
+
+    return RequestStream(obj.base_rates, obj.horizon, obj.epoch_dt,
+                         diurnal_period=obj.diurnal_period,
+                         diurnal_amp=obj.diurnal_amp,
+                         spikes=from_reference(tuple(obj.spikes)),
+                         poisson=obj.poisson, seed=obj.seed)
+
+
+#: (attributes that identify a scheduler input, its converter), tried in
+#: this order before the core objects
+_SCHED_INPUTS = (
+    (("arrivals", "cluster", "count_scale", "state_bytes_per_proc"),
+     _trace_from),
+    (("time", "graph"), _arrival_from),
+    (("time", "kind", "node", "deadline"), _node_event_from),
+    (("model", "p99_target_s", "service_rate"), _slo_from),
+    (("model", "start", "duration", "multiplier"), _spike_from),
+    (("base_rates", "horizon", "epoch_dt", "epochs"), _stream_from),
+)
+
+
 def from_reference(obj, cluster: Optional[ClusterTopology] = None):
-    """Duck-typed conversion of a job graph, cluster, hierarchy, placement
-    or tracker (or a list / tuple of them) into this package's classes.
+    """Duck-typed conversion into this package's classes of a job graph,
+    cluster, hierarchy, placement or tracker, or of a scheduler input: a
+    trace spec, an arrival, a node event, a model SLO, a traffic spike or
+    a request stream (or a list / tuple of any of them).
 
     ``cluster`` is the already-converted cluster a placement or tracker
     should hang on; without it their own ``.cluster`` is converted too.
     """
     if isinstance(obj, (list, tuple)):
         return type(obj)(from_reference(o, cluster) for o in obj)
+    for attrs, convert in _SCHED_INPUTS:
+        if all(hasattr(obj, k) for k in attrs):
+            return convert(obj)
     if all(hasattr(obj, k) for k in ("L", "lam", "cnt", "job_id")):
         return appgraph_from_arrays(obj.name, obj.L, obj.lam, obj.cnt,
                                     obj.job_id)

@@ -38,26 +38,98 @@ launch_count = 0
 _FN = {torch.float32: "lindley_scan_f32", torch.float64: "lindley_scan_f64"}
 
 
+#: the kernel's tiling (``csrc/lindley_scan.cu``): a block of THREADS
+#: threads scans a tile of THREADS * ITEMS elements, thread t owning the
+#: ITEMS consecutive elements from t * ITEMS; WARP lanes scan together
+THREADS, ITEMS, WARP = 256, 7, 32
+TILE = THREADS * ITEMS
+
+
+def _combine(a, b):
+    """``a . b`` of two ``(u, v)`` map tensors, ``a`` the EARLIER one."""
+    return a[0] + b[0], torch.maximum(a[1] + b[0], b[1])
+
+
+def _identity_like(t: torch.Tensor, shape) -> tuple:
+    return (torch.zeros(shape, dtype=t.dtype, device=t.device),
+            torch.full(shape, float("-inf"), dtype=t.dtype, device=t.device))
+
+
+def _block_exclusive(x):
+    """``block_exclusive`` of the ``.cu`` over the last axis (THREADS maps
+    in thread order): each thread's exclusive prefix and the block total.
+
+    A Hillis-Steele scan inside each warp; the warps' totals folded in
+    order from the identity; thread ``t``'s prefix is ``before(warp) .
+    inclusive(t - 1)`` (the identity for lane 0)."""
+    lead = x[0].shape[:-1]
+    u = x[0].reshape(*lead, THREADS // WARP, WARP).clone()
+    v = x[1].reshape(*lead, THREADS // WARP, WARP).clone()
+    d = 1
+    while d < WARP:
+        # every lane reads its d-th predecessor's value from before the step
+        new_u, new_v = _combine((u[..., :-d], v[..., :-d]), (u[..., d:], v[..., d:]))
+        u[..., d:], v[..., d:] = new_u, new_v
+        d <<= 1
+    before = _identity_like(u, lead)
+    befores_u, befores_v = [], []
+    for w in range(THREADS // WARP):
+        befores_u.append(before[0])
+        befores_v.append(before[1])
+        before = _combine(before, (u[..., w, -1], v[..., w, -1]))
+    first_u, first_v = _identity_like(u, (*lead, THREADS // WARP, 1))
+    prev = (torch.cat([first_u, u[..., :-1]], -1), torch.cat([first_v, v[..., :-1]], -1))
+    excl = _combine((torch.stack(befores_u, -1)[..., None],
+                     torch.stack(befores_v, -1)[..., None]), prev)
+    return (excl[0].reshape(*lead, THREADS), excl[1].reshape(*lead, THREADS)), before
+
+
 def lindley_scan_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The same scan in plain PyTorch, on any device, along the last axis.
 
-    Log-step doubling sweep: after the step with distance ``d`` position
-    ``i`` holds the composition of elements ``(i - 2d, i]`` in order.
-    ``-inf`` heads only ever meet ``+`` and ``max`` (never a subtraction),
-    so no NaN can form.
+    It composes the maps in the kernel's order, step for step, so its
+    result is bit-identical to the kernel's: the row is cut into tiles
+    padded with the identity; (1) each thread's ITEMS elements are folded
+    in order and scanned across the block into one aggregate per tile;
+    (2) each row's tile aggregates are scanned, THREADS at a time, into
+    every tile's carry-in; (3) each tile is rescanned from its carry-in
+    and its threads' exclusive prefixes. A float sum depends on its
+    association, so any other order (a log-step sweep, a serial loop)
+    agrees with the kernel only to rounding. ``-inf`` heads only ever meet
+    ``+`` and ``max`` (never a subtraction), so no NaN can form.
     """
-    big_u, big_v = u.clone(), v.clone()
-    n = u.shape[-1]
-    d = 1
-    while d < n:
-        # combine(earlier = [..., :-d], later = [..., d:]); both right-hand
-        # sides are evaluated before either is assigned
-        new_v = torch.maximum(big_v[..., :-d] + big_u[..., d:], big_v[..., d:])
-        new_u = big_u[..., :-d] + big_u[..., d:]
-        big_u[..., d:] = new_u
-        big_v[..., d:] = new_v
-        d <<= 1
-    return torch.maximum(big_u, big_v)
+    shape, n = u.shape, u.shape[-1]
+    u2, v2 = u.reshape(-1, n), v.reshape(-1, n)
+    rows, tiles = u2.shape[0], -(-n // TILE)
+    pad_u, pad_v = _identity_like(u2, (rows, tiles * TILE - n))
+    uu = torch.cat([u2, pad_u], -1).reshape(rows, tiles, THREADS, ITEMS)
+    vv = torch.cat([v2, pad_v], -1).reshape(rows, tiles, THREADS, ITEMS)
+    # 1. per tile: each thread folds its items, the block scans the threads
+    acc = (uu[..., 0], vv[..., 0])
+    for i in range(1, ITEMS):
+        acc = _combine(acc, (uu[..., i], vv[..., i]))
+    excl, total = _block_exclusive(acc)
+    # 2. per row: the tiles' carry-ins, THREADS tiles a round
+    carry = _identity_like(u2, (rows,))
+    carry_u, carry_v = [], []
+    for base in range(0, tiles, THREADS):
+        k = min(THREADS, tiles - base)
+        fill_u, fill_v = _identity_like(u2, (rows, THREADS - k))
+        chunk = (torch.cat([total[0][:, base:base + k], fill_u], -1),
+                 torch.cat([total[1][:, base:base + k], fill_v], -1))
+        chunk_excl, chunk_total = _block_exclusive(chunk)
+        c = _combine((carry[0][:, None], carry[1][:, None]), chunk_excl)
+        carry_u.append(c[0][:, :k])
+        carry_v.append(c[1][:, :k])
+        carry = _combine(carry, chunk_total)
+    # 3. per tile: carry-in . thread prefix, then the thread's items
+    run = _combine((torch.cat(carry_u, -1)[..., None], torch.cat(carry_v, -1)[..., None]),
+                   excl)
+    out = []
+    for i in range(ITEMS):
+        run = _combine(run, (uu[..., i], vv[..., i]))
+        out.append(torch.maximum(run[0], run[1]))
+    return torch.stack(out, -1).reshape(rows, tiles * TILE)[:, :n].reshape(shape)
 
 
 def _check(u: torch.Tensor, v: torch.Tensor) -> None:

@@ -1,8 +1,18 @@
-"""Serving layer of the port: the batched decode engine.
+"""Serving layer of the port: the batched decode engine and the fleet's
+closed loop.
 
-``repro.serve.fleet`` (the fleet's request streams and SLO accounting) is
-ported with the scheduler (ROADMAP queue 1).
+``serve.fleet`` (request streams, the SLO latency model, the violation
+accountant) is numpy on the host; the fleet scheduler's autoscaler
+depends on it. ``serve.engine`` holds ``ServeEngine``.
 """
 from .engine import Request, ServeEngine
+from .fleet import (LN100, ModelSLO, RequestStream, SLOAccountant,
+                    TrafficEpoch, TrafficSpike, clone_replica, fleet_p99s,
+                    model_key, replica_p99, route_weights)
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = [
+    "Request", "ServeEngine",
+    "LN100", "ModelSLO", "RequestStream", "SLOAccountant",
+    "TrafficEpoch", "TrafficSpike", "clone_replica", "fleet_p99s",
+    "model_key", "replica_p99", "route_weights",
+]

@@ -51,6 +51,9 @@ def test_kernel_matches_plain_version(card, shape, dtype, tol):
     want = ls.lindley_scan_plain(u, v)
     assert not torch.isnan(got).any()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    # the plain version composes in the kernel's order: the same bits
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
 
 
 def test_wrapper_raises_on_cuda_tensors_it_does_not_take(card):
@@ -445,3 +448,39 @@ def test_ssm_model_on_the_card_matches_its_plain_twin(card):
     want, _ = twin.decode_step(want_cache, step, torch.tensor([40, 40]))
     assert ssd.launch_count == before + cfg.n_layers      # decode runs no scan
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fleet_scheduler_kernel_run_equals_its_torch_twin(card):
+    """``FleetScheduler(device=None)`` is the card and the kernel backend; the
+    Table-4 trace with remaps and the reference faults decides exactly as
+    the ``torch`` backend on the same card (the plain scan composes in the
+    kernel's order), with equal stats and byte-identical recorder dumps."""
+    import dataclasses
+    import json
+
+    from repro_torch import obs
+    from repro_torch.sched import (FleetScheduler, RecoveryConfig, RemapConfig,
+                                   SchedulerConfig, get_trace, reference_fault_trace)
+
+    spec = get_trace("table4_poisson")
+
+    def run(backend):
+        rec = obs.Recorder()
+        sched = FleetScheduler(spec.cluster, "new", recorder=rec, config=SchedulerConfig(
+            remap=RemapConfig(interval=5.0, budget=16),
+            recovery=RecoveryConfig(failure_policy="elastic"),
+            count_scale=spec.count_scale, sim_backend=backend,
+            state_bytes_per_proc=spec.state_bytes_per_proc))
+        assert sched.device.type == "cuda"
+        sched.submit_trace(spec.arrivals)
+        sched.submit_faults(reference_fault_trace(spec.cluster))
+        while sched.step() is not None:
+            sched.check_invariants()
+        return sched, json.dumps(rec.dump(), sort_keys=True)
+
+    before = ls.launch_count
+    kernel, kernel_dump = run("auto")
+    assert kernel.sim_backend == "kernel" and ls.launch_count > before
+    twin, twin_dump = run("torch")
+    assert kernel_dump == twin_dump
+    assert dataclasses.asdict(kernel.stats()) == dataclasses.asdict(twin.stats())

@@ -36,7 +36,14 @@ def test_the_walk_covers_the_slice():
                  "kernels/ops.py", "models/ssm.py",
                  "configs/base.py", "configs/qwen3_0_6b.py",
                  "models/layers.py", "models/model.py", "models/convert.py",
-                 "serve/engine.py", "launch/serve.py"):
+                 "serve/engine.py", "launch/serve.py", "serve/fleet.py",
+                 "core/commgraph.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
+                 "ckpt/fault_tolerance.py", "sched/__init__.py",
+                 "sched/events.py", "sched/stats.py", "sched/loads.py",
+                 "sched/config.py", "sched/cells.py", "sched/clock.py",
+                 "sched/traces.py", "sched/recovery.py", "sched/remap.py",
+                 "sched/admission.py", "sched/autoscale.py",
+                 "sched/scheduler.py"):
         assert want in names
     for cu in ("lindley_scan.cu", "flash_attention.cu", "rmsnorm.cu", "ssd_scan.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file()
@@ -67,6 +74,8 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
         "import repro_torch.models.convert, repro_torch.serve\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.sched, repro_torch.ckpt, repro_torch.serve.fleet\n"
+        "import repro_torch.core.commgraph\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"

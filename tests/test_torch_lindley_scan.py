@@ -156,3 +156,82 @@ def test_cpu_tensors_do_not_count_as_kernel_launches():
     ls.lindley_scan(torch.zeros((1, 4), dtype=torch.float64),
                     torch.zeros((1, 4), dtype=torch.float64))
     assert ls.launch_count == before
+
+
+def _kernel_order_scan(u, v, threads, items, warp):
+    """The ``.cu``'s three launches transcribed element by element in
+    Python floats: thread reduce, warp Hillis-Steele scan, warp totals
+    folded from the identity, carry-in scan THREADS tiles a round, rescan."""
+    ident = (0.0, -np.inf)
+
+    def comb(a, b):
+        return (a[0] + b[0], max(a[1] + b[0], b[1]))
+
+    def block_exclusive(xs):
+        inc = list(xs)
+        d = 1
+        while d < warp:
+            inc = [comb(inc[t - d], inc[t]) if t % warp >= d else inc[t]
+                   for t in range(threads)]
+            d <<= 1
+        aggs = [inc[w * warp + warp - 1] for w in range(threads // warp)]
+        total, befores = ident, []
+        for a in aggs:
+            befores.append(total)
+            total = comb(total, a)
+        return [comb(befores[t // warp], ident if t % warp == 0 else inc[t - 1])
+                for t in range(threads)], total
+
+    tile = threads * items
+    n = len(u)
+    tiles = -(-n // tile)
+    uu = list(u) + [0.0] * (tiles * tile - n)
+    vv = list(v) + [-np.inf] * (tiles * tile - n)
+    el = list(zip(uu, vv))
+    excl, totals = [], []
+    for t in range(tiles):
+        thr = []
+        for th in range(threads):
+            base = t * tile + th * items
+            acc = el[base]
+            for i in range(1, items):
+                acc = comb(acc, el[base + i])
+            thr.append(acc)
+        e, total = block_exclusive(thr)
+        excl.append(e)
+        totals.append(total)
+    carry, carry_in = ident, []
+    for base in range(0, tiles, threads):
+        xs = [totals[base + k] if base + k < tiles else ident for k in range(threads)]
+        e, total = block_exclusive(xs)
+        carry_in += [comb(carry, e[k]) for k in range(threads) if base + k < tiles]
+        carry = comb(carry, total)
+    w = []
+    for t in range(tiles):
+        for th in range(threads):
+            run = comb(carry_in[t], excl[t][th])
+            for i in range(items):
+                run = comb(run, el[t * tile + th * items + i])
+                w.append(max(run))
+    return np.array(w[:n])
+
+
+@pytest.mark.parametrize("layout,n", [((256, 7, 32), 1), ((256, 7, 32), 1793),
+                                      ((256, 7, 32), 4000), ((8, 3, 4), 23),
+                                      ((8, 3, 4), 24 * 8 * 2 + 5)],
+                         ids=["one", "two_tiles", "three_tiles",
+                              "small_tile", "two_carry_rounds"])
+def test_plain_version_composes_in_the_kernel_order(monkeypatch, layout, n):
+    """The plain version's bits are the kernel's: its steps follow
+    ``csrc/lindley_scan.cu`` (checked against the kernel itself on the
+    card). A shrunken tile (8 threads x 3 items, warps of 4) reaches the
+    carry scan's second round at a size Python can walk."""
+    threads, items, warp = layout
+    monkeypatch.setattr(ls, "THREADS", threads)
+    monkeypatch.setattr(ls, "ITEMS", items)
+    monkeypatch.setattr(ls, "WARP", warp)
+    monkeypatch.setattr(ls, "TILE", threads * items)
+    u, v = _rows(5, 1, n)
+    want = _kernel_order_scan(u[0], v[0], threads, items, warp)
+    got = ls.lindley_scan_plain(torch.from_numpy(u), torch.from_numpy(v))[0].numpy()
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))

@@ -6,6 +6,8 @@ their plain fields, so both packages compute on the same jobs, cluster
 and placement.
 """
 import contextlib
+import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -168,3 +170,143 @@ class FakeLibrary:
         fn = self.Function(self._values.get(name, 0))
         setattr(self, name, fn)
         return fn
+
+
+# ---------------------------------------------------------------------------
+# The fleet scheduler, run live in both packages on the same trace
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class SchedRun:
+    """One scheduler run and what it decided, step by step."""
+
+    sched: object
+    stats: object
+    dump: str            # the flight recorder, wall-clock fields excluded
+    events: list         # (time, kind, job_id, epoch, node, deadline) handled
+    placements: list     # (now, "assign" | "remove", job_id, cores)
+
+
+def _log_placements(sched, log: list) -> None:
+    """Record every change of the scheduler's live placement: every admit,
+    migration, shrink, eviction and departure goes through these two."""
+    placement = sched.placement
+    assign, remove = placement.assign, placement.remove
+
+    def logged_assign(job_id, cores):
+        log.append((sched.now, "assign", int(job_id),
+                    tuple(int(c) for c in cores)))
+        return assign(job_id, cores)
+
+    def logged_remove(job_id):
+        log.append((sched.now, "remove", int(job_id), ()))
+        return remove(job_id)
+
+    placement.assign, placement.remove = logged_assign, logged_remove
+
+
+def sched_config(pkg, spec, flat=None, autoscale=None):
+    """``pkg``'s :class:`SchedulerConfig` for ``spec`` from the historical
+    flat kwargs (each package's ``from_legacy``) plus an enabled autoscale
+    section over the spec's SLOs."""
+    cfg = pkg.SchedulerConfig.from_legacy(
+        state_bytes_per_proc=spec.state_bytes_per_proc,
+        count_scale=spec.count_scale, **(flat or {}))
+    if autoscale is not None:
+        cfg = dataclasses.replace(cfg, autoscale=pkg.AutoscaleConfig(
+            enabled=True, slos=spec.slos, **autoscale))
+    return cfg
+
+
+def run_sched(package, spec, strategy="new", flat=None, *, autoscale=None,
+              faults=None, check=True, **sched_kw) -> SchedRun:
+    """Run ``spec`` (a reference-made trace, converted for the port) through
+    ``package`` ("ref" or "port") event by event, checking the invariants
+    after every event. The port runs on the host (``device="cpu"``)."""
+    if package == "port":
+        import repro_torch.obs as obs_mod
+        import repro_torch.sched as pkg
+        spec = convert.from_reference(spec)
+        faults = None if faults is None else convert.from_reference(list(faults))
+        sched_kw.setdefault("device", "cpu")
+    else:
+        import repro.obs as obs_mod
+        import repro.sched as pkg
+    rec = obs_mod.Recorder()
+    sched = pkg.FleetScheduler(spec.cluster, strategy, recorder=rec,
+                               config=sched_config(pkg, spec, flat, autoscale),
+                               **sched_kw)
+    placements: list = []
+    _log_placements(sched, placements)
+    for g in getattr(spec, "replicas", ()):
+        sched.submit(g, at=0.0, resident=True)
+    sched.submit_trace(spec.arrivals)
+    if faults is not None:
+        sched.submit_faults(faults)
+    if autoscale is not None:
+        sched.submit_traffic(spec.stream)
+    until = sched.autoscale.horizon if sched.autoscale.enabled else None
+    events = []
+    while until is None or (sched.events.peek() is not None
+                            and sched.events.peek().time <= until):
+        ev = sched.step()
+        if ev is None:
+            break
+        events.append((ev.time, ev.kind, ev.job_id, ev.epoch, ev.node,
+                       ev.deadline))
+        if check:
+            sched.check_invariants()
+    stats = sched.run()          # nothing left to step: settles the clock
+    return SchedRun(sched, stats, json.dumps(rec.dump(), sort_keys=True),
+                    events, placements)
+
+
+def run_pair(spec, strategy="new", flat=None, *, port_flat=None, **kw):
+    """The same trace through the reference and the port: ``(ref, port)``.
+    ``port_flat`` replaces ``flat`` for the port (another backend)."""
+    return (run_sched("ref", spec, strategy, flat, **kw),
+            run_sched("port", spec, strategy,
+                      flat if port_flat is None else port_flat, **kw))
+
+
+def _assert_tree_close(a, b, tol, what):
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and a.keys() == b.keys(), what
+        for k in b:
+            _assert_tree_close(a[k], b[k], tol, f"{what}[{k!r}]")
+    elif isinstance(b, (list, tuple)):
+        assert isinstance(a, (list, tuple)) and len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_tree_close(x, y, tol, f"{what}[{i}]")
+    elif isinstance(b, float) and not isinstance(a, bool):
+        close(a, b, tol, what)
+    else:
+        assert a == b, f"{what}: {a!r} vs {b!r}"
+
+
+def decisions(run: SchedRun) -> dict:
+    """What the scheduler decided: handled events, placement changes
+    (admission order, every core of every job), remap, autoscale and drain
+    verdicts, as plain values."""
+    s = run.sched
+    return {"events": run.events, "placements": run.placements,
+            "remap": [dataclasses.astuple(d) for d in s.decisions],
+            "autoscale": [dataclasses.astuple(d) for d in s.autoscale.decisions],
+            "draining": dict(s.draining),
+            "pending": list(s.pending)}
+
+
+def assert_same_run(port: SchedRun, ref: SchedRun, tol=None):
+    """``tol=None``: the two runs are equal — every decision, every
+    ``FleetStats`` field and the flight-recorder dump byte for byte.
+    Otherwise the decisions (kinds, jobs, nodes, cores, verdicts) are
+    identical and every float, in the stats, the decisions and the
+    dump's records, agrees within ``tol`` relative."""
+    if tol is None:
+        assert decisions(port) == decisions(ref)
+        assert dataclasses.asdict(port.stats) == dataclasses.asdict(ref.stats)
+        assert port.dump == ref.dump
+        return
+    _assert_tree_close(decisions(port), decisions(ref), tol, "decisions")
+    _assert_tree_close(dataclasses.asdict(port.stats),
+                       dataclasses.asdict(ref.stats), tol, "stats")
+    _assert_tree_close(json.loads(port.dump), json.loads(ref.dump), tol, "dump")
