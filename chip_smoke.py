@@ -48,7 +48,16 @@ general / general / wgmma), then drives the port's paths at full size:
   scan composes in K1's order, so the two give the same bits. Each run
   reports its wall time, events, scans, K1 launches and the card's idle
   share (CUDA events around each scan's copies and launches); K1 is then
-  timed at the scheduler's row sizes.
+  timed at the scheduler's row sizes;
+* phase 8, the fleet planner (``core.meshplan``) on the 512-chip 2-pod
+  fleet — the quickstart's phi3.5-moe plan under the six default
+  strategies (perms bijective, ``new_tpu`` no worse on NIC load and DCN
+  bytes than ``blocked``), ``examples/multi_job_placement.py``'s three jobs
+  placed under six strategies (``search:new_tpu`` scoring through K1) and
+  simulated at ``count_scale=1.0`` on the card against the host
+  ``segmented`` backend, and the ``serve_fleet`` trace (12 arrivals) in
+  ``FleetScheduler(device=None)`` under four strategies, each run held to
+  its ``torch`` twin as in phase 7.
 
 Needs a CUDA card and ``nvcc``; exits non-zero when either is missing or
 any phase fails. The last line of standard output is ``{"ok": true,
@@ -72,8 +81,8 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch import obs  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import ClusterTopology, mapping, sim_scan, workloads  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.core import ClusterTopology, mapping, meshplan, sim_scan, workloads  # noqa: E402
 from repro_torch.core.simulator import simulate, simulate_batch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -1438,27 +1447,48 @@ def sched_config(spec, **kw):
                            state_bytes_per_proc=spec.state_bytes_per_proc, **kw)
 
 
-def scheduler_runs(device) -> tuple[dict, list]:
-    """Phase 7's five runs, each on the kernel backend and on its torch
-    twin on the same card; returns the rows and the kernel runs' scan
-    shapes."""
-    rows, shapes = {}, []
+class Pairs:
+    """Scheduler runs on the kernel backend, each beside its torch twin on
+    the same card; collects their rows and the kernel runs' scan shapes."""
 
-    def pair(name, spec, strategy, config, *, twin_arrivals=None, **kw):
+    def __init__(self, device, phase: str = "scheduler"):
+        self.device, self.phase = device, phase
+        self.rows, self.shapes = {}, []
+
+    def __call__(self, name, spec, strategy, config, *, twin_arrivals=None, **kw):
+        device, rows = self.device, self.rows
         twin_config = dataclasses.replace(config, sim_backend="torch")
         kernel = sched_run(spec, strategy, config, device, arrivals=twin_arrivals, **kw)
-        twin = sched_run(spec, strategy, twin_config, device, arrivals=twin_arrivals, **kw)
+        # what the scheduler leaves on ``auto`` (a search strategy's scoring)
+        # runs on the plain scan in the twin too
+        saved = os.environ.get("REPRO_TORCH_SIM_BACKEND")
+        os.environ["REPRO_TORCH_SIM_BACKEND"] = "torch"
+        try:
+            twin = sched_run(spec, strategy, twin_config, device, arrivals=twin_arrivals, **kw)
+        finally:
+            if saved is None:
+                del os.environ["REPRO_TORCH_SIM_BACKEND"]
+            else:
+                os.environ["REPRO_TORCH_SIM_BACKEND"] = saved
         if kernel["row"]["backend"] != "kernel" or kernel["row"]["k1_launches"] <= 0:
             fail(f"scheduler run {name} did not re-simulate through K1: {kernel['row']}")
         if twin["row"]["k1_launches"] != 0:
             fail(f"scheduler run {name}: the torch twin launched K1")
         verdict = gate(name, kernel, twin)
         rows[name] = {"kernel": kernel["row"], "torch": twin["row"], "gate": verdict}
-        shapes.extend(kernel["shapes"])
+        self.shapes.extend(kernel["shapes"])
         for backend in ("kernel", "torch"):
-            say("scheduler", run=name, **rows[name][backend])
-        say("scheduler", run=name, gate=verdict)
+            say(self.phase, run=name, **rows[name][backend])
+        say(self.phase, run=name, gate=verdict)
         return kernel
+
+
+def scheduler_runs(device) -> tuple[dict, list]:
+    """Phase 7's five runs, each on the kernel backend and on its torch
+    twin on the same card; returns the rows and the kernel runs' scan
+    shapes."""
+    pair = Pairs(device)
+    rows, shapes = pair.rows, pair.shapes
 
     # 1. the paper's trace under every one-shot strategy, and on the host
     spec = get_trace("table4_poisson")
@@ -1518,6 +1548,106 @@ def scheduler_runs(device) -> tuple[dict, list]:
     shapes.extend(full["shapes"])
     say("scheduler", run="fleet1k", arrivals=len(spec.arrivals), **full["row"])
     return rows, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the fleet planner (core.meshplan), its simulations through K1
+# ---------------------------------------------------------------------------
+#: the job set of ``examples/multi_job_placement.py`` (the 2-pod fleet)
+MULTI_JOB = (
+    ("yi-6b-train (spans pods)", "yi-6b", "train_4k", {"pod": 2, "data": 12, "model": 16}),
+    ("qwen2-moe-train", "qwen2-moe-a2.7b", "train_4k", {"data": 4, "model": 16}),
+    ("granite-decode", "granite-3-2b", "decode_32k", {"data": 4, "model": 16}),
+)
+PLACE_STRATEGIES = ("blocked", "cyclic", "drb", "new", "new_tpu", "search:new_tpu")
+SERVE_FLEET_STRATEGIES = ("new", "new_tpu", "cyclic", "search:new_tpu")
+#: the reference's own slack on "new_tpu is no worse than blocked"
+#: (``tests/test_commgraph_meshplan.py``)
+NIC_SLACK = 1.001
+
+
+def multi_job_specs() -> list:
+    """Fresh job specs (``place_jobs`` numbers them in place)."""
+    return [meshplan.JobSpec(name, get_config(arch), SHAPES[shape], dict(axes))
+            for name, arch, shape, axes in MULTI_JOB]
+
+
+def fleet_planner(device) -> tuple[dict, list]:
+    """Phase 8: the quickstart's single-job plan under every strategy, the
+    multi-job example placed and simulated on the card, and the
+    ``serve_fleet`` trace in the scheduler beside its torch twins. Returns
+    K1's launches by run and the kernel runs' scan shapes."""
+    topo = meshplan.tpu_topology(n_pods=2)
+    launches = {}
+
+    # (a) the quickstart's fleet part: one 512-chip job, every strategy
+    t0 = time.perf_counter()
+    plans = meshplan.compare_strategies(get_config("phi3.5-moe-42b-a6.6b"),
+                                        SHAPES["train_4k"],
+                                        {"pod": 2, "data": 16, "model": 16}, topo)
+    say("fleet_planner", step="compare_strategies", wall_s=time.perf_counter() - t0)
+    for name, plan in plans.items():
+        perm = np.asarray(plan.perm)
+        if not (perm.size == topo.n_cores and np.array_equal(np.sort(perm),
+                                                              np.arange(topo.n_cores))):
+            fail(f"fleet planner: {name}'s perm is not a bijection onto the fleet")
+        metrics = {k: v for k, v in plan.metrics.items() if k != "level_loads"}
+        say("fleet_planner", step="compare_strategies", strategy=name, **metrics)
+    for key in ("max_nic_load", "dcn_bytes"):
+        if plans["new_tpu"].metrics[key] > plans["blocked"].metrics[key] * NIC_SLACK:
+            fail(f"fleet planner: new_tpu's {key} is above blocked's: "
+                 f"{plans['new_tpu'].metrics[key]} vs {plans['blocked'].metrics[key]}")
+
+    # (b) the multi-job example: place, NIC loads, simulate on the card
+    #     (K1), each result held to the host segmented backend
+    for strategy in PLACE_STRATEGIES:
+        torch.cuda.synchronize()
+        ls.launch_count = 0
+        t0 = time.perf_counter()
+        placement, graphs = meshplan.place_jobs(multi_job_specs(), topo,
+                                                strategy=strategy, device=device)
+        place_s = time.perf_counter() - t0
+        nic = meshplan.fleet_nic_load(placement, graphs, topo)
+        t0 = time.perf_counter()
+        res = simulate(graphs, placement, topo, count_scale=1.0, backend="auto",
+                       device=device)
+        torch.cuda.synchronize()
+        sim_s = time.perf_counter() - t0
+        name = f"multi_job.{strategy}"
+        launches[name] = ls.launch_count
+        placement.validate()
+        if launches[name] <= 0:
+            fail(f"fleet planner {name} did not simulate through K1")
+        host = simulate(graphs, placement, topo, count_scale=1.0,
+                        backend="segmented", device="cpu")
+        results_agree(res, host, f"fleet planner {name} kernel vs host segmented",
+                      per_job_tol=SEGMENTED_PER_JOB_TOL)
+        row = {"place_s": place_s, "simulate_s": sim_s, "k1_launches": launches[name],
+               "n_messages": res.n_messages, "total_wait_ms": res.total_wait_ms,
+               "max_server_utilisation": res.max_server_utilisation,
+               "max_nic_load": nic["max_nic_load"],
+               "nic_utilisation": nic["nic_utilisation"]}
+        if strategy.startswith("search:"):
+            # the search scored on the card must walk the host's trajectory
+            t0 = time.perf_counter()
+            host_placement, _ = meshplan.place_jobs(multi_job_specs(), topo,
+                                                    strategy=strategy, device="cpu")
+            row["host_segmented_place_s"] = time.perf_counter() - t0
+            if any(not np.array_equal(host_placement.assignments[j], c)
+                   for j, c in placement.assignments.items()):
+                fail(f"fleet planner {name}: the search on the card placed other "
+                     f"chips than the search on the host")
+        say("fleet_planner", step="multi_job", strategy=strategy, **row)
+
+    # (c) the serve_fleet trace in the scheduler, each run beside its twin
+    pair = Pairs(device, phase="fleet_planner")
+    spec = get_trace("serve_fleet")
+    for strategy in SERVE_FLEET_STRATEGIES:
+        name = f"serve_fleet.{strategy}"
+        kernel = pair(name, spec, strategy, sched_config(spec))
+        expect_complete(name, kernel, len(spec.arrivals))
+        launches[name] = kernel["row"]["k1_launches"]
+    return launches, pair.shapes
 
 
 def sched_row_timing(device, shapes: list) -> dict:
@@ -1639,6 +1769,15 @@ def main() -> int:
     say("scheduler", step="summary", seconds=time.perf_counter() - t0,
         k1_launches=sum(sched_launches.values()), k1_at_scheduler_rows=sched_rows_k1)
 
+    # -- phase 8: the fleet planner; K1's launches counted from 0 over each
+    #    placement + simulation and each scheduler run on the kernel backend
+    t0 = time.perf_counter()
+    fleet_k1, fleet_shapes = fleet_planner(device)
+    fleet_launches = {f"fleet.{name}": n for name, n in fleet_k1.items()}
+    say("fleet_planner", step="summary", seconds=time.perf_counter() - t0,
+        k1_launches=sum(fleet_launches.values()), scans=len(fleet_shapes),
+        largest_scan=max((int(b) * int(n) for b, n in fleet_shapes), default=0))
+
     at = timed[(K_FULL, torch.float64)]     # the shape simulate_batch scans
     attn = attn_timed[("path", torch.bfloat16)]   # the serving path's per-layer call
     norm = norm_timed[(8192, 1024, torch.bfloat16)]   # ln1 / ln2 rows of the prefill
@@ -1653,12 +1792,13 @@ def main() -> int:
         "name": "lindley_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lindley_scan.cu",
         "replaces": "src/repro/kernels/lindley_scan.py:100",
-        "launches": path_launches + sum(sched_launches.values()),
+        "launches": (path_launches + sum(sched_launches.values())
+                     + sum(fleet_launches.values())),
         "max_abs_err": at["max_abs_err"],
         "ms": at["ms"], "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"], "library_ms": None, "device_ms": at["device_ms"],
         "shape": at["shape"], "dtype": at["dtype"],
-        "launches_by_step": {**path["launches"], **sched_launches},
+        "launches_by_step": {**path["launches"], **sched_launches, **fleet_launches},
         "scheduler_rows": sched_rows_k1,
     }, {
         "name": "flash_attention", "route": "cuda",

@@ -1,13 +1,11 @@
-"""Architecture registry: the 10 assigned archs + shapes (data only).
-
-A copy of ``src/repro/configs`` without the TPU fleet constants.
-"""
+"""Architecture registry: the 10 assigned archs + shapes + the modelled
+fleet's parameters (data only). A copy of ``src/repro/configs``."""
 from __future__ import annotations
 
 import importlib
 
-from .base import (SHAPES, ModelConfig, MoEConfig, ShapeSpec, SSMConfig,
-                   applicable)
+from .base import (FLEET, SHAPES, FleetConfig, ModelConfig, MoEConfig,
+                   ShapeSpec, SSMConfig, applicable)
 
 # arch-id -> module name in this package
 _ARCH_MODULES: dict[str, str] = {
@@ -41,6 +39,6 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = [
-    "ARCH_IDS", "SHAPES", "ModelConfig", "MoEConfig", "ShapeSpec",
-    "SSMConfig", "applicable", "get_config", "get_smoke_config",
+    "ARCH_IDS", "FLEET", "SHAPES", "FleetConfig", "ModelConfig", "MoEConfig",
+    "ShapeSpec", "SSMConfig", "applicable", "get_config", "get_smoke_config",
 ]

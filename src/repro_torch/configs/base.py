@@ -5,8 +5,9 @@ Every assigned architecture gets one module in this package exposing
 the same family for CPU tests). Input shapes are global — each (arch x
 shape) cell is defined by :func:`applicable`.
 
-A copy of ``src/repro/configs/base.py`` without the TPU fleet constants
-(``FleetConfig`` / ``FLEET``), which only the mesh planner reads.
+A copy of ``src/repro/configs/base.py``, including the parameters of the
+modelled accelerator fleet (``FleetConfig`` / ``FLEET``) that the mesh
+planner (``core.meshplan``) places jobs on.
 """
 from __future__ import annotations
 
@@ -178,3 +179,33 @@ def applicable(cfg: ModelConfig, shape: ShapeSpec) -> bool:
     if shape.name == "long_500k":
         return cfg.family in SUBQUADRATIC_FAMILIES
     return True
+
+
+# ---------------------------------------------------------------------------
+# Parameters of the modelled fleet (core.meshplan)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """The accelerator fleet the mesh planner maps jobs onto.
+
+    These are inputs of the placement model, kept equal to the reference's
+    field for field so both packages build the same topology; they describe
+    the modelled fleet, not the device this package computes on.
+    ``peak_flops_bf16``, ``hbm_bw`` and ``hbm_bytes`` feed the reference's
+    roofline bench only; nothing in this package reads them.
+    """
+    chips_per_pod: int = 256
+    chips_per_host: int = 8
+    peak_flops_bf16: float = 197e12     # FLOP/s per chip (roofline input)
+    hbm_bw: float = 819e9               # bytes/s per chip (roofline input)
+    hbm_bytes: float = 16e9             # bytes per chip (roofline input)
+    ici_bw_per_link: float = 50e9       # bytes/s per intra-pod link
+    ici_links_per_chip: int = 4         # intra-pod links per chip
+    dcn_bw_per_host: float = 25e9       # bytes/s of each host's pod-boundary NIC
+
+    @property
+    def hosts_per_pod(self) -> int:
+        return self.chips_per_pod // self.chips_per_host
+
+
+FLEET = FleetConfig()

@@ -10,6 +10,10 @@ Public surface:
   sim_scan   — segmented max-plus scan backends (DESIGN.md §8)
   workloads  — paper Tables 2–9 + the rack_oversub mix (§9)
   commgraph  — AppGraph derivation for sharded model jobs (collective traffic)
+  meshplan   — fleet mesh planning: tpu_topology, the fleet-adapted
+               new_tpu strategy (+ search:new_tpu), place_jobs
+  (commgraph and meshplan read ``repro_torch.configs``; import them by
+  module, this package's namespace stays free of configs)
   convert    — build these objects from plain arrays and field dicts
 """
 from .graphs import (AppGraph, ClusterFull, ClusterTopology, FlatMessages,

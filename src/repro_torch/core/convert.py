@@ -5,7 +5,9 @@ traffic matrices, the cluster's fields and network hierarchy, a
 placement's per-job core arrays, a tracker's used / offline masks, and
 the fleet scheduler's inputs: a trace (its cluster, timestamped
 arrivals and knobs and, for a serving trace, resident replicas, SLOs and
-request stream) and injected node events. These functions rebuild each
+request stream) and injected node events; and the mesh planner's inputs:
+model configs, input shapes, the fleet's parameters and job specs
+(``core.meshplan.JobSpec``). These functions rebuild each
 from values read off another implementation's objects **by attribute**
 — no import of that implementation is needed, so a differential test
 can hand both packages the same jobs, cluster, placement and trace.
@@ -150,9 +152,33 @@ def _stream_from(obj):
                          poisson=obj.poisson, seed=obj.seed)
 
 
-#: (attributes that identify a scheduler input, its converter), tried in
-#: this order before the core objects
+def _config_from(obj):
+    """A ``configs`` dataclass (model config, shape, fleet parameters) of
+    the same name, field for field; nested MoE / SSM configs too."""
+    from .. import configs
+
+    cls = getattr(configs, type(obj).__name__)
+    return cls(**{f.name: _config_from(getattr(obj, f.name))
+                  if dataclasses.is_dataclass(getattr(obj, f.name))
+                  else getattr(obj, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def _jobspec_from(obj):
+    from .meshplan import JobSpec  # meshplan imports configs
+
+    return JobSpec(name=obj.name, cfg=_config_from(obj.cfg),
+                   shape=_config_from(obj.shape),
+                   mesh_axes=dict(obj.mesh_axes), job_id=obj.job_id)
+
+
+#: (attributes that identify a scheduler or mesh-planner input, its
+#: converter), tried in this order before the core objects
 _SCHED_INPUTS = (
+    (("cfg", "shape", "mesh_axes", "job_id"), _jobspec_from),
+    (("arch_id", "family", "d_model"), _config_from),
+    (("kind", "seq_len", "global_batch"), _config_from),
+    (("chips_per_pod", "chips_per_host", "dcn_bw_per_host"), _config_from),
     (("arrivals", "cluster", "count_scale", "state_bytes_per_proc"),
      _trace_from),
     (("time", "graph"), _arrival_from),
@@ -165,9 +191,11 @@ _SCHED_INPUTS = (
 
 def from_reference(obj, cluster: Optional[ClusterTopology] = None):
     """Duck-typed conversion into this package's classes of a job graph,
-    cluster, hierarchy, placement or tracker, or of a scheduler input: a
+    cluster, hierarchy, placement or tracker, of a scheduler input: a
     trace spec, an arrival, a node event, a model SLO, a traffic spike or
-    a request stream (or a list / tuple of any of them).
+    a request stream, or of a mesh-planner input: a job spec, a model
+    config, a shape or the fleet's parameters (or a list / tuple of any
+    of them).
 
     ``cluster`` is the already-converted cluster a placement or tracker
     should hang on; without it their own ``.cluster`` is converted too.

@@ -22,7 +22,6 @@ uniformly.
 """
 from __future__ import annotations
 
-import functools
 import sys
 import warnings
 from collections import deque
@@ -35,7 +34,6 @@ from ..ckpt.checkpoint import CheckpointCostModel  # noqa: F401
 # ^ re-exported: the historical import surface of this module
 from ..core.graphs import (AppGraph, ClusterFull, ClusterTopology,
                            FreeCoreTracker, Placement)
-from ..core.mapping import ONE_SHOT_STRATEGIES, STRATEGIES
 from ..core.simulator import SimHandle, resolve_backend, resolve_device
 from ..core.workloads import Arrival
 from .admission import AdmissionController
@@ -58,10 +56,6 @@ MB = 1 << 20
 
 StrategyLike = Union[str, Callable[..., Placement]]
 
-#: the reference's fleet strategies, which live in ``core.meshplan`` — a
-#: module this package does not hold yet
-MESHPLAN_STRATEGIES = ("new_tpu", "search:new_tpu")
-
 
 class SchedulerInvariantError(RuntimeError):
     """Core accounting went wrong (leak / double-assignment / drift)."""
@@ -69,23 +63,19 @@ class SchedulerInvariantError(RuntimeError):
 
 def resolve_strategy(strategy: StrategyLike,
                      device=None) -> Callable[..., Placement]:
-    """Name -> strategy fn; callables pass through.
+    """Name -> strategy fn; accepts the fleet strategies and callables.
 
     The search strategies (``search:*``, ``anneal``) score their
     populations with ``simulate_batch`` on ``device`` (``None``: the
-    CUDA card). The fleet strategies of ``core.meshplan`` raise a
-    ``KeyError`` that says so.
+    CUDA card).
     """
     if callable(strategy):
         return strategy
-    if strategy in STRATEGIES:
-        if strategy in ONE_SHOT_STRATEGIES:
-            return STRATEGIES[strategy]
-        return functools.partial(STRATEGIES[strategy], device=device)
-    known = sorted(set(STRATEGIES) | set(MESHPLAN_STRATEGIES))
-    if strategy in MESHPLAN_STRATEGIES:
-        raise KeyError(f"strategy {strategy!r} lives in core.meshplan, which "
-                       f"this package does not hold yet; known: {known}")
+    # new_tpu lives in meshplan (pulls in configs) — import lazily
+    from ..core.meshplan import TPU_STRATEGIES, fleet_strategy
+    if strategy in TPU_STRATEGIES:
+        return fleet_strategy(strategy, device)
+    known = sorted(TPU_STRATEGIES)
     raise KeyError(f"unknown strategy {strategy!r}; known: {known}")
 
 

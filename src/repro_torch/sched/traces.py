@@ -8,10 +8,8 @@ benchmarks and tests run the same scenario by name:
 * ``npb_poisson`` — Poisson arrivals over the Table-6 NPB mix.
 * ``serve_fleet`` — a serving fleet: decode/prefill jobs for the
   ``repro_torch.configs`` model zoo arriving Poisson on a 2-pod fleet
-  (the ROADMAP's multi-tenant serving scenario). Its cluster comes from
-  ``core.meshplan``, which this package does not hold yet: the trace
-  raises ``NotImplementedError`` (its job mix, :func:`serve_fleet_mix`,
-  builds).
+  (the ROADMAP's multi-tenant serving scenario), on the fleet topology
+  of ``core.meshplan``.
 * ``serve_slo`` — resident model replicas under a bursty request stream
   with per-model SLOs (the autoscaler's scenario).
 * ``rack_oversub`` / ``fleet64`` / ``fleet1k`` — the oversubscribed-rack
@@ -219,9 +217,16 @@ def serve_fleet_trace(rate: float = 0.02, n_arrivals: int = 12,
                       seed: int = 0) -> TraceSpec:
     """The serving-fleet scenario: :func:`serve_fleet_mix` arriving
     Poisson on the 2-pod fleet topology of ``core.meshplan``."""
-    raise NotImplementedError(
-        "the serve_fleet trace runs on core.meshplan's fleet topology "
-        "(tpu_topology), and this package does not hold core.meshplan yet")
+    from ..core.meshplan import tpu_topology
+
+    return TraceSpec(
+        name="serve_fleet",
+        cluster=tpu_topology(n_pods=2),
+        arrivals=poisson_trace(serve_fleet_mix(), rate, n_arrivals,
+                               seed=seed),
+        count_scale=1.0,            # serve graphs carry per-step counts
+        state_bytes_per_proc=2e9,   # a resident shard's payload per chip
+    )
 
 
 # ---------------------------------------------------------------------------

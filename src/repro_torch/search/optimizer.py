@@ -86,10 +86,12 @@ def _resolve_seed(seed: SeedLike) -> tuple[Callable[..., Placement], str]:
         raise ValueError(f"search seed {seed!r} is itself a search strategy")
     if seed in STRATEGIES:
         return STRATEGIES[seed], seed
-    known = sorted(ONE_SHOT_STRATEGIES)
-    raise KeyError(f"unknown search seed {seed!r}; known: {known} "
-                   f"(fleet seeds such as 'new_tpu' live in core.meshplan, "
-                   f"which this package does not hold yet)")
+    from ..core.meshplan import TPU_STRATEGIES  # lazy: pulls in configs
+
+    if seed in TPU_STRATEGIES:
+        return TPU_STRATEGIES[seed], seed
+    known = sorted(ONE_SHOT_STRATEGIES) + ["new_tpu"]
+    raise KeyError(f"unknown search seed {seed!r}; known: {known}")
 
 
 def auto_objective_scale(jobs: Sequence[AppGraph],

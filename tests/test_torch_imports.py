@@ -43,7 +43,7 @@ def test_the_walk_covers_the_slice():
                  "sched/config.py", "sched/cells.py", "sched/clock.py",
                  "sched/traces.py", "sched/recovery.py", "sched/remap.py",
                  "sched/admission.py", "sched/autoscale.py",
-                 "sched/scheduler.py"):
+                 "sched/scheduler.py", "core/meshplan.py"):
         assert want in names
     for cu in ("lindley_scan.cu", "flash_attention.cu", "rmsnorm.cu", "ssd_scan.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file()
@@ -75,7 +75,7 @@ def test_importing_the_port_leaves_jax_and_reference_out():
         "import repro_torch.models.convert, repro_torch.serve\n"
         "import repro_torch.launch.serve\n"
         "import repro_torch.sched, repro_torch.ckpt, repro_torch.serve.fleet\n"
-        "import repro_torch.core.commgraph\n"
+        "import repro_torch.core.commgraph, repro_torch.core.meshplan\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print(bad)\n"

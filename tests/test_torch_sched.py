@@ -123,8 +123,8 @@ def test_remap_verdicts_match_reference(state, cost):
 
 def test_resolve_strategy_lists_the_reference_registry():
     """An unknown name lists the same strategies as the reference; the
-    fleet strategies of ``core.meshplan`` raise a ``KeyError`` that names
-    it."""
+    fleet strategies of ``core.meshplan`` resolve in both packages and a
+    scheduler builds on them."""
     with pytest.raises(KeyError) as want:
         ref_resolve_strategy("omnet_magic")
     with pytest.raises(KeyError) as got:
@@ -132,11 +132,10 @@ def test_resolve_strategy_lists_the_reference_registry():
     known = str(want.value).split("known: ")[1]
     assert known in str(got.value)
     for name in ("new_tpu", "search:new_tpu"):
-        ref_resolve_strategy(name)
-        with pytest.raises(KeyError, match="meshplan"):
-            resolve_strategy(name)
-        with pytest.raises(KeyError, match="meshplan"):
-            FleetScheduler(ClusterTopology(n_nodes=2), name, device="cpu")
+        assert callable(ref_resolve_strategy(name))
+        assert callable(resolve_strategy(name, device="cpu"))
+        sched = FleetScheduler(ClusterTopology(n_nodes=2), name, device="cpu")
+        assert sched.strategy_name == name
 
 
 def test_device_none_raises_without_cuda(monkeypatch):

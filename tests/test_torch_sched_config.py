@@ -133,11 +133,15 @@ def test_get_trace_builds_the_reference_trace(name, kw):
 
 
 def test_serve_fleet_waits_for_meshplan():
-    """The serving-fleet trace runs on ``core.meshplan``'s fleet topology,
-    which the port does not hold yet; its job mix builds as the
-    reference's."""
-    with pytest.raises(NotImplementedError, match="meshplan"):
-        get_trace("serve_fleet")
+    """The serving-fleet trace on ``core.meshplan``'s fleet topology (the
+    name dates from before the port held it): the port builds the
+    reference's trace field for field, and its job mix the reference's
+    graphs."""
+    want = ref_sched.get_trace("serve_fleet")
+    got = get_trace("serve_fleet")
+    assert got.cluster.n_cores == 512 and got.cluster.pods == 2
+    _assert_same_spec(got, want)
+    _assert_same_spec(convert.from_reference(want), want)
     for a, b in zip(traces.serve_fleet_mix(), ref_traces.serve_fleet_mix(),
                     strict=True):
         _same_graph(a, b)

@@ -131,9 +131,22 @@ def test_seed_resolution_errors():
         search_placement([], t_cluster, seed="search:new", device="cpu")
     with pytest.raises(KeyError):
         search_placement([], t_cluster, seed="no_such_strategy", device="cpu")
-    # fleet seeds live in the planner module, which the port does not hold yet
-    with pytest.raises(KeyError, match="meshplan"):
-        search_placement([], t_cluster, seed="new_tpu", device="cpu")
+    # the unknown-seed error lists the reference's seeds, the fleet's too
+    with pytest.raises(KeyError) as want:
+        ref_search_placement([], cluster, seed="no_such_strategy",
+                             backend="segmented")
+    with pytest.raises(KeyError) as got:
+        search_placement([], t_cluster, seed="no_such_strategy", device="cpu")
+    assert "new_tpu" in str(got.value) and str(got.value) == str(want.value)
+    # the fleet seed resolves through core.meshplan and the search succeeds
+    t_jobs = convert.from_reference(jobs)
+    knobs = dict(budget=16, population=4, rng_seed=2)
+    ref = ref_search_placement(jobs, cluster, seed="new_tpu",
+                               backend="segmented", **knobs)
+    res = search_placement(t_jobs, t_cluster, seed="new_tpu",
+                           backend="segmented", device="cpu", **knobs)
+    assert res.seed_name == ref.seed_name == "new_tpu"
+    _assert_same_search(res, ref)
 
 
 def test_search_without_a_device_raises_without_cuda(monkeypatch):
